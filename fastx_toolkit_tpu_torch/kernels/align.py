@@ -1,0 +1,225 @@
+"""Half-local adapter alignment, batched, in plain torch.
+
+Counterpart of ``fastx_toolkit_tpu/kernels/align.py::align_batch``: the
+exact x10-integer DP (match +10, mismatch -10, gap -50, neutral +1,
+N/N 0) that carries each cell's path statistics forward instead of
+tracing back, with the ``tie_fragile`` flag.  See the reference's
+docstring for the derivation; this module keeps its semantics bit for
+bit:
+
+* candidate priority UL > UP > LEFT (UL wins UL/LEFT ties, the row-0
+  border-up candidate beats LEFT ties and loses UL ties, and a later cell
+  wins an up-chain score tie only if its own winner was the UL move);
+* the LEFT ban ``y > 3 and y - 3 > x`` and the target border
+  ``0 if y <= 3 else GAP * (y - 3)``;
+* the global best is the first (x, then y) strict maximum over
+  ``x < lengths``, starting from -10,000,000;
+* the fragility rules t1 (UL/LEFT tie), t2 (row-0 border tie), the
+  up-chain tie, t4 (tie with the running best) and t5 (tie between rows
+  at the column max).
+
+This is the plain version the CUDA kernel K1 (``align_cuda.py``) is held
+against.  State is laid out ``[H, B]``; the in-column up-chain is an
+inclusive Hillis-Steele scan over the adapter rows with the reference's
+combine, which is associative, so any scan order gives the same result
+as the sequential chain the CUDA kernel runs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+GAP = -50
+MATCH = 10
+MISMATCH = -10
+NEUTRAL = 1
+_N = ord("N")
+
+NEG = -1000000
+NEG_BEST = -10000000
+_SCAN_IDENTITY = -(1 << 30)
+
+FIELDS = ("matches", "mismatches", "gaps", "neutral",
+          "query_start", "query_end", "target_start", "target_end")
+
+
+def _comb(a, b, tie_flag: bool):
+    """Up-chain combine; ``b`` is the later block.  Tuple slots: adjusted
+    score, winner-was-UL, matches, mismatches, gaps-y, neutral, qs, ts,
+    fragile.  ``b`` wins a score tie only if its winner was the UL move; a
+    tie with a neutral or an inherited flag on either side is fragile."""
+    ywins = (b[0] > a[0]) | ((b[0] == a[0]) & b[1])
+    out = tuple(torch.where(ywins, yb, ya) for ya, yb in zip(a, b))
+    if tie_flag:
+        tie = (b[0] == a[0]) & (((a[5] + b[5]) > 0) | a[8] | b[8])
+        out = out[:8] + (out[8] | tie,)
+    return out
+
+
+def _shift_down(a, sh: int, fill):
+    top = torch.full((sh,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                     device=a.device)
+    return torch.cat([top, a[:-sh]], dim=0)
+
+
+def _scan_up_chain(state, tie_flag: bool):
+    """Inclusive scan over rows (dim 0) with :func:`_comb`."""
+    H = state[0].shape[0]
+    fills = (_SCAN_IDENTITY, False, 0, 0, 0, 0, 0, 0, False)
+    sh = 1
+    while sh < H:
+        shifted = tuple(_shift_down(s, sh, f) for s, f in zip(state, fills))
+        state = _comb(shifted, state, tie_flag)
+        sh *= 2
+    return state
+
+
+def align_batch(bases: torch.Tensor, lengths: torch.Tensor, adapter: bytes,
+                tie_flag: bool = False):
+    """Align every read of ``bases`` (uint8 ``[B, L]``, any bytes beyond
+    ``lengths``) against ``adapter``.  Returns a dict of int32 ``[B]``
+    tensors (:data:`FIELDS`), plus ``tie_fragile`` bool ``[B]`` when
+    ``tie_flag`` is set.  Runs on whatever device ``bases`` lies on."""
+    dev = bases.device
+    B, L = bases.shape
+    H = len(adapter)
+    i32 = torch.int32
+    lengths = lengths.to(device=dev, dtype=i32)
+    ys = torch.arange(H, dtype=i32, device=dev)[:, None]            # [H, 1]
+    target_border = torch.where(ys <= 3, torch.zeros_like(ys), GAP * (ys - 3))
+    tc = torch.tensor(list(adapter), dtype=i32, device=dev)[:, None]
+    t_is_n = tc == _N
+    row0 = ys == 0
+    gap_y = GAP * ys
+    ysb = ys.expand(H, B)
+    zhb = torch.zeros((H, B), dtype=i32, device=dev)
+    basesT = bases.to(i32).T.contiguous()                             # [L, B]
+
+    psc = pm = pmm = pg = pnm = pqs = pts = zhb
+    pfl = torch.zeros((H, B), dtype=torch.bool, device=dev)
+    zb = torch.zeros(B, dtype=i32, device=dev)
+    best = torch.full((B,), NEG_BEST, dtype=i32, device=dev)
+    bm = bmm = bg = bnm = bqs = bts = bx = by = zb
+    bfl = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    for x in range(L):
+        qc = basesT[x][None, :]                                       # [1, B]
+        q_is_n = qc == _N
+        one_n = q_is_n | t_is_n
+        eq = qc == tc
+        delta = torch.where(
+            q_is_n & t_is_n, 0,
+            torch.where(one_n, NEUTRAL, torch.where(eq, MATCH, MISMATCH)),
+        ).to(i32)
+        inc_m = (~one_n & eq).to(i32)
+        inc_mm = (~one_n & ~eq).to(i32)
+        inc_nm = one_n.to(i32)
+        first_col = x == 0
+
+        # --- upper-left candidate: source row y-1 of the previous column
+        #     (the target border for the first column, 0 at row 0) ---
+        src = target_border.expand(H, B) if first_col else psc
+        ul_sc = _shift_down(src, 1, 0) + delta
+        fresh = row0 | first_col            # the path starts at this cell
+        if first_col:
+            ul_m, ul_mm, ul_nm = inc_m.expand(H, B), inc_mm.expand(H, B), \
+                inc_nm.expand(H, B)
+            ul_g = zhb
+            ul_qs = torch.full((H, B), x, dtype=i32, device=dev)
+            ul_ts = ysb
+            ul_fl = torch.zeros((H, B), dtype=torch.bool, device=dev)
+        else:
+            ul_m = torch.where(row0, 0, _shift_down(pm, 1, 0)) + inc_m
+            ul_mm = torch.where(row0, 0, _shift_down(pmm, 1, 0)) + inc_mm
+            ul_nm = torch.where(row0, 0, _shift_down(pnm, 1, 0)) + inc_nm
+            ul_g = torch.where(row0, 0, _shift_down(pg, 1, 0))
+            ul_qs = torch.where(row0, x, _shift_down(pqs, 1, 0))
+            ul_ts = torch.where(row0, ysb, _shift_down(pts, 1, 0))
+            ul_fl = ~fresh & _shift_down(pfl, 1, False)
+
+        # --- left candidate (banned off-diagonal) ---
+        ban = (ys > 3) & ((ys - 3) > x)
+        left_src = target_border if first_col else psc
+        left_sc = torch.where(ban, NEG, left_src + GAP).to(i32).expand(H, B)
+        if first_col:
+            left_g = torch.ones((H, B), dtype=i32, device=dev)
+            left_m = left_mm = left_nm = zhb
+            left_qs = torch.full((H, B), x, dtype=i32, device=dev)
+            left_ts = ysb
+            left_fl = torch.zeros((H, B), dtype=torch.bool, device=dev)
+        else:
+            left_g = pg + 1
+            left_m, left_mm, left_nm = pm, pmm, pnm
+            left_qs, left_ts, left_fl = pqs, pts, pfl
+
+        # --- UL vs LEFT (UL wins ties) ---
+        lw = left_sc > ul_sc
+        e_sc = torch.where(lw, left_sc, ul_sc)
+        e_ul = ~lw
+        e_m = torch.where(lw, left_m, ul_m)
+        e_mm = torch.where(lw, left_mm, ul_mm)
+        e_g = torch.where(lw, left_g, ul_g)
+        e_nm = torch.where(lw, left_nm, ul_nm)
+        e_qs = torch.where(lw, left_qs, ul_qs)
+        e_ts = torch.where(lw, left_ts, ul_ts)
+        if tie_flag:
+            t1 = (left_sc == ul_sc) & (((ul_nm + left_nm) > 0) | ul_fl | left_fl)
+            e_fl = torch.where(lw, left_fl, ul_fl) | t1
+        else:
+            e_fl = torch.zeros((H, B), dtype=torch.bool, device=dev)
+
+        # --- row-0 border-up candidate (priority UP) ---
+        up0_better = row0 & ((GAP > e_sc) | ((e_sc == GAP) & ~e_ul))
+        e_sc = torch.where(up0_better, GAP, e_sc)
+        e_ul = torch.where(up0_better, False, e_ul)
+        e_m = torch.where(up0_better, 0, e_m)
+        e_mm = torch.where(up0_better, 0, e_mm)
+        e_g = torch.where(up0_better, 1, e_g)
+        e_nm = torch.where(up0_better, 0, e_nm)
+        e_qs = torch.where(up0_better, x, e_qs)
+        e_ts = torch.where(up0_better, 0, e_ts)
+        if tie_flag:
+            t2 = row0 & (e_sc == GAP) & ((e_nm > 0) | e_fl)
+            e_fl = torch.where(up0_better, False, e_fl) | t2
+
+        # --- up-chain: cur[y] = best of e[k] + GAP*(y-k), k <= y ---
+        c_adj, _, c_m, c_mm, c_gadj, c_nm, c_qs, c_ts, c_fl = _scan_up_chain(
+            (e_sc - gap_y, e_ul, e_m, e_mm, e_g - ys, e_nm, e_qs, e_ts, e_fl),
+            tie_flag)
+        cur = c_adj + gap_y
+        c_g = c_gadj + ys
+
+        # --- global best: first (x, then y), strict > ---
+        col_best = cur.max(dim=0).values
+        ymask = cur == col_best[None, :]
+        col_by = ymask.to(torch.uint8).argmax(dim=0).to(i32)
+
+        def pick(a):
+            return a.gather(0, col_by.long()[None, :])[0]
+
+        improve = (x < lengths) & (col_best > best)
+        if tie_flag:
+            cfl_sel = pick(c_fl)
+            t5 = (ymask.sum(dim=0) > 1) & (
+                ((ymask & (c_nm > 0)).any(dim=0)) | (ymask & c_fl).any(dim=0))
+            t4 = (x < lengths) & (col_best == best) & (
+                ((pick(c_nm) + bnm) > 0) | cfl_sel | bfl)
+            bfl = torch.where(improve, cfl_sel | t5, bfl) | t4
+        best = torch.where(improve, col_best, best)
+        bm = torch.where(improve, pick(c_m), bm)
+        bmm = torch.where(improve, pick(c_mm), bmm)
+        bg = torch.where(improve, pick(c_g), bg)
+        bnm = torch.where(improve, pick(c_nm), bnm)
+        bqs = torch.where(improve, pick(c_qs), bqs)
+        bts = torch.where(improve, pick(c_ts), bts)
+        bx = torch.where(improve, x, bx)
+        by = torch.where(improve, col_by, by)
+
+        psc, pm, pmm, pg, pnm, pqs, pts, pfl = (
+            cur, c_m, c_mm, c_g, c_nm, c_qs, c_ts, c_fl)
+
+    out = dict(zip(FIELDS, (bm, bmm, bg, bnm, bqs, bx, bts, by)))
+    out = {k: v.to(i32) for k, v in out.items()}
+    if tie_flag:
+        out["tie_fragile"] = bfl
+    return out

@@ -1,0 +1,189 @@
+"""The port's CUDA kernels on the card against their plain PyTorch versions
+on the same CUDA tensors, and the on-card engine against its CPU path.
+
+Every test is marked ``cuda`` and skips without a CUDA device (the
+kernels have no CPU mode).  On a machine with a card, which has no jax,
+run from the repository root:
+
+    FASTX_TPU_TEST_REAL=1 python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+(``FASTX_TPU_TEST_REAL=1`` keeps tests/conftest.py from importing jax.)
+Results are integers and bytes: every comparison is exact (tolerance 0).
+"""
+
+import io
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from fastx_toolkit_tpu_torch.cli.tools._shared import BatchReader
+from fastx_toolkit_tpu_torch.core import codec, native
+from fastx_toolkit_tpu_torch.engine import lines
+from fastx_toolkit_tpu_torch.engine.pipeline import (
+    PipelineConfig,
+    _thresholds,
+    _words_T,
+    packed_decisions_pipeline,
+)
+from fastx_toolkit_tpu_torch.kernels import align_cuda, counts_cuda
+
+pytestmark = pytest.mark.cuda
+
+FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
+          "query_end", "target_start", "target_end", "tie_fragile")
+ADAPTER = b"CTGTAGGCACCATCAAT"
+ALPHA = np.frombuffer(b"ACGTN", np.uint8)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _operands(seed, B, L, n_frac, adapter, device):
+    """Random reads with noisy adapters spiked in, lengths 0..L, packed as
+    the engine packs them: ``(b2w, nmw, lengths)`` on ``device``."""
+    rng = np.random.default_rng(seed)
+    bases = rng.choice(ALPHA, size=(B, L), p=[(1 - n_frac) / 4] * 4 + [n_frac])
+    pos = rng.integers(0, max(1, L - len(adapter)), B)
+    ad = np.frombuffer(adapter, np.uint8)
+    for j in range(len(ad)):
+        m = (rng.random(B) < 0.4) & (pos + j < L)
+        col = np.where(rng.random(B) < 0.9, ad[j], rng.choice(ALPHA[:4], B))
+        bases[m, (pos + j)[m]] = col[m]
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    bases[np.arange(L)[None, :] >= lengths[:, None]] = ord("A")
+    b2, planes = native.pack2(np.ascontiguousarray(bases),
+                              np.full((B, L), 30, np.int8), (), True)
+    L32 = -(-L // 32) * 32
+    b2w = _words_T(torch.from_numpy(b2), L32 // 4)
+    nmw = _words_T(torch.from_numpy(np.ascontiguousarray(planes[:, 0])),
+                   L32 // 8)
+    return b2w.to(device), nmw.to(device), torch.from_numpy(lengths).to(device)
+
+
+@pytest.mark.parametrize("adapter,L,n_frac,B,with_nm,tie", [
+    (ADAPTER, 100, 0.05, 4096, True, True),          # headline shape
+    (ADAPTER, 100, 0.05, 1000, True, False),         # ragged B, flag-free
+    (ADAPTER, 100, 0.0, 1000, False, True),          # nmw=None shortcut
+    (b"CCTTAAGGCCTTAAGGCCTTAAGGCCTTAAG", 100, 0.05, 2048, True, True),  # H=31
+    (b"CTGNAGGCANCATCAAT", 100, 0.1, 2048, False, True),  # N in the adapter
+    (ADAPTER, 511, 0.03, 512, True, True),           # L=511
+    (b"CCTTAAGG", 8, 0.2, 333, True, True),          # tiny reads
+])
+def test_k1_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
+    b2w, nmw, lengths = _operands(L + B, B, L, n_frac, adapter, dev)
+    if not with_nm:
+        nmw = None
+    before = align_cuda.launches
+    got = align_cuda.align_batch_packed(b2w, nmw, lengths, adapter, L=L,
+                                        tie_flag=tie)
+    assert align_cuda.launches == before + 1
+    want = align_cuda.align_batch_packed_plain(b2w, nmw, lengths, adapter,
+                                               L=L, tie_flag=tie)
+    for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
+        assert got[k].device == dev
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
+                                   rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("L,with_nm", [(24, True), (70, False), (70, True),
+                                       (511, True)])
+def test_k2_matches_plain_on_card(dev, L, with_nm):
+    b2w, nmw, lengths = _operands(L, 1500, L, 0.1, ADAPTER, dev)
+    if not with_nm:
+        nmw = None
+    before = counts_cuda.launches
+    worst, ncnt = counts_cuda.packed_counts(b2w, nmw, lengths)
+    assert counts_cuda.launches == before + 1
+    w_plain, n_plain = counts_cuda.packed_counts_plain(b2w, nmw, lengths)
+    torch.testing.assert_close(worst, w_plain, rtol=0, atol=0)
+    torch.testing.assert_close(ncnt, n_plain, rtol=0, atol=0)
+
+
+def test_cuda_operands_are_checked_not_routed_to_plain(dev):
+    b2w, nmw, lengths = _operands(5, 64, 100, 0.05, ADAPTER, dev)
+    before = (align_cuda.launches, counts_cuda.launches)
+    with pytest.raises(ValueError, match="lengths"):
+        align_cuda.align_batch_packed(b2w, nmw, lengths.long(), ADAPTER, L=100)
+    with pytest.raises(ValueError, match="nmw"):
+        counts_cuda.packed_counts(b2w, nmw.cpu(), lengths)
+    assert (align_cuda.launches, counts_cuda.launches) == before
+
+
+def _chunk_planes(seed, B, L):
+    """Random FASTQ-like reads packed with the headline chain's planes
+    (N plane first): ``(b2, planes, lengths)`` as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    bases = rng.choice(ALPHA, size=(B, L), p=[0.24] * 4 + [0.04])
+    pos = rng.integers(0, L - 5, B)
+    for j, ch in enumerate(ADAPTER):
+        m = (rng.random(B) < 0.35) & (pos + j < L)
+        bases[m, (pos + j)[m]] = ch
+    quals = rng.integers(2, 41, size=(B, L)).astype(np.int8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int16)
+    b2, planes = native.pack2(np.ascontiguousarray(bases), quals,
+                              _thresholds(PipelineConfig()), True)
+    return b2, planes, lengths
+
+
+def test_decisions_on_card_match_cpu(dev):
+    cfg = PipelineConfig()
+    b2, planes, lengths = _chunk_planes(11, 3000, 100)
+    before = (align_cuda.launches, counts_cuda.launches)
+    got = packed_decisions_pipeline(cfg, b2, planes, lengths,
+                                    has_n_plane=True, device=dev,
+                                    tie_flag=True)
+    assert (align_cuda.launches, counts_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = packed_decisions_pipeline(cfg, b2, planes, lengths,
+                                     has_n_plane=True, device="cpu",
+                                     tie_flag=True)
+    for g, w, name in zip(got, want, ("l", "keep", "fragile")):
+        assert torch.equal(g.cpu(), w), name
+    assert want[2].any()
+
+
+def _lane(n, seed):
+    """Adapter-spiked reads of 20-100 bp; the second half carries Ns."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        ln = int(rng.integers(20, 101))
+        p = [0.23] * 4 + [0.08] if i >= n // 2 else [0.25] * 4 + [0.0]
+        seq = rng.choice(ALPHA, size=ln, p=p)
+        if rng.random() < 0.5:
+            at = int(rng.integers(0, ln))
+            ad = np.frombuffer(ADAPTER, np.uint8)[: ln - at]
+            seq[at:at + len(ad)] = ad
+        q = (np.clip(rng.normal(30, 8, ln), 2, 40) + 33).astype(np.uint8)
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, seq.tobytes(), q.tobytes()))
+    return b"".join(recs)
+
+
+def _stream(data, device, chunk_rows):
+    args = SimpleNamespace(input_filename="<test>", q_offset=33)
+    reader = BatchReader(None, args, filetype=codec.FASTQ_ONLY,
+                         block_bytes=65536, stream=io.BytesIO(data))
+    eng = lines.LineEngines(PipelineConfig(), device)
+    out = []
+    counts = lines.stream_pipeline_lines(
+        reader, PipelineConfig(), out_fastq=True, q_offset=33,
+        write=out.append, device=device, chunk_rows=chunk_rows, engines=eng)
+    return counts, b"".join(out), eng.fragile_rows
+
+
+def test_stream_on_card_matches_cpu(dev):
+    data = _lane(6000, seed=12)
+    before = (align_cuda.launches, counts_cuda.launches)
+    got = _stream(data, dev, chunk_rows=1000)
+    launched = (align_cuda.launches - before[0],
+                counts_cuda.launches - before[1])
+    want = _stream(data, "cpu", chunk_rows=1000)
+    assert got == want
+    assert want[0][0] == 6000 and want[2] > 0
+    assert min(launched) >= 6  # every dispatch went through both kernels

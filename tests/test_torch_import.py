@@ -1,0 +1,83 @@
+"""The PyTorch port imports and runs without jax, CPU tensors take the
+plain path, and a missing CUDA device is an error, never a quiet CPU
+fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fastx_toolkit_tpu_torch.device import resolve_device
+from fastx_toolkit_tpu_torch.kernels import align_cuda, counts_cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_py(code, stdin=b"", env_extra=None, args=()):
+    env = dict(os.environ, PYTHONPATH=ROOT, FASTX_TORCH_DEVICE="cpu")
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code, *args], input=stdin,
+                          capture_output=True, env=env, cwd=ROOT, timeout=300)
+
+
+def test_port_imports_without_jax():
+    r = _run_py(
+        "import sys\n"
+        "import fastx_toolkit_tpu_torch\n"
+        "import fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline\n"
+        "import fastx_toolkit_tpu_torch.engine.lines\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "print('ok')\n")
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout.strip() == b"ok"
+
+
+def test_port_cli_runs_with_jax_unimportable():
+    """Not only the imports: a whole CLI run must not reach jax (the
+    machine with the card has none), so it runs with jax blocked."""
+    rng = np.random.default_rng(3)
+    recs = []
+    for i in range(50):
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), 60).tobytes()
+        qual = (rng.integers(2, 41, 60) + 33).astype(np.uint8).tobytes()
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, seq, qual))
+    r = _run_py(
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv[0] = 'fastx_pipeline'\n"
+        "runpy.run_module('fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline',"
+        " run_name='__main__')\n",
+        stdin=b"".join(recs),
+        args=("-Q", "33", "fastq_quality_trimmer -t 20 | "
+              "fastx_clipper -a CTGTAGGCACCATCAAT -n | fastx_artifacts_filter"))
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout.startswith(b"@r")
+
+
+def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
+    before = (align_cuda.launches, counts_cuda.launches)
+    b2w = torch.zeros((8, 4), dtype=torch.int32)
+    nmw = torch.zeros((4, 4), dtype=torch.int32)
+    lengths = torch.full((4,), 100, dtype=torch.int32)
+    res = align_cuda.align_batch_packed(b2w, nmw, lengths, b"CTGTAGGCA", L=100,
+                                        tie_flag=True)
+    worst, ncnt = counts_cuda.packed_counts(b2w, nmw, lengths)
+    assert set(res) >= {"matches", "gaps", "tie_fragile"}
+    assert worst.tolist() == [100] * 4 and ncnt.tolist() == [0] * 4
+    assert (align_cuda.launches, counts_cuda.launches) == before
+
+
+def test_resolve_device(monkeypatch):
+    monkeypatch.setenv("FASTX_TORCH_DEVICE", "cpu")
+    assert resolve_device() == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the absent-CUDA error "
+                    "cannot be shown here")
+    monkeypatch.delenv("FASTX_TORCH_DEVICE")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()  # the default is cuda
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
