@@ -5,26 +5,44 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port (``fastx_toolkit_tpu_torch``) and nothing of jax:
+It drives the port (``fastx_toolkit_tpu_torch``) and nothing of jax or
+of the JAX package:
 
 1. device  — CUDA must be available; prints the card's name and power
    limit (``nvidia-smi --query-gpu=name,power.limit``);
 2. build   — compiles the CUDA kernels from ``fastx_toolkit_tpu_torch/csrc``
    with nvcc and prints the build seconds and the compiler's register /
    spill report;
-3. kernels — K1 (packed adapter DP) and K2 (packed counts) against their
-   plain torch versions on the card, on the first 262,144 reads of the
-   headline lane packed as the engine packs them (flags on), on the
-   no-N-plane shortcut, and on adversarial batches at H=31 and L=511:
-   every output field must be equal (tolerance 0: integer results);
-4. main    — the headline chain through the ``fastx_pipeline`` CLI (in
-   process, stdin/stdout in memory) on the seeded 1,000,000 x 100 bp
-   lane, the kernels' launch counters set to 0 just before; the output
-   bytes must equal a host reference rendered from float32 host
-   decisions (``engine/hostfix``) over all reads, which never touches the
-   kernels; then the same through ``stream_pipeline_lines``;
-5. times   — end-to-end reads/s (median of 3 runs after a warm-up) and
-   the device time of K1 and K2 beside their plain versions;
+3. kernels — every kernel against its plain torch version on the card,
+   every output field equal (tolerance 0: integer results):
+   K1 (packed adapter DP) and K2 (packed counts) on the first 262,144
+   reads of the headline lane, on the no-N-plane shortcut and on
+   adversarial batches at H=31 and L=511; K3 (wide packed DP) on the
+   first 262,144 reads of a 1M x 150 bp lane spiked with the 33-base
+   TruSeq adapter, on its no-N-plane shortcut and at H=72, L=600; K4
+   (unpacked DP) on the first 262,144 reads of the 1M x 50 bp small-RNA
+   lane, on its legacy-effective bases, at H=99 with lowercase and U
+   bytes (L=300), and at B=1 and B=300; in phase 4, K4 again on the
+   inputs of every launch that paths (a) and (c) made (kept as device
+   copies during the run), so it is held against its plain version at
+   each shape a path gives it;
+4. paths   — at full width, each run with the kernels' launch counters
+   set to 0 just before, each output held byte for byte against a host
+   reference that never touches a kernel (numpy and the native float32
+   clipper):
+   main  the headline chain through the ``fastx_pipeline`` CLI on the
+         seeded 1,000,000 x 100 bp lane (line engine: K1, K2), then the
+         same through ``stream_pipeline_lines``;
+   (a)   ``fastx_clipper -Q 33 -a TGGAATTCTCGGGTGCCAAGG -l 15 -c -v`` on
+         the 1M x 50 bp small-RNA lane (K4, with the legacy emulation);
+   (b)   ``fastx_pipeline -Q 33`` on the headline chain with the TruSeq
+         adapter, on the 1M x 150 bp lane (K3 and K2; K1 never);
+   (c)   ``fastx_pipeline -v -Q 33`` on the headline chain and lane: the
+         classic per-batch loop (K4), its ``-v`` report held against
+         per-stage counts from the host replay;
+5. times   — end-to-end reads/s of the headline (median of 3 runs after a
+   warm-up) and of paths (a)-(c) (one timed run each), and the device
+   time of K1-K4 beside their plain versions (CUDA events);
 6. prints the kernels' JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -32,6 +50,7 @@ Any failed phase exits non-zero.  Without CUDA it exits 2 and prints no
 result.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -43,10 +62,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-import bench
+from fastx_toolkit_tpu_torch import synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
-from fastx_toolkit_tpu_torch.cli.tools import fastx_pipeline
-from fastx_toolkit_tpu_torch.cli.tools._shared import BatchReader
+from fastx_toolkit_tpu_torch.cli.tools import fastx_clipper, fastx_pipeline
+from fastx_toolkit_tpu_torch.cli.tools._shared import (
+    BatchReader,
+    render_same_as_input,
+)
 from fastx_toolkit_tpu_torch.core import codec, native
 from fastx_toolkit_tpu_torch.engine import hostfix
 from fastx_toolkit_tpu_torch.engine.lines import LineEngines, stream_pipeline_lines
@@ -56,24 +78,68 @@ from fastx_toolkit_tpu_torch.engine.pipeline import (
     _words_T,
     packed_quality_stage,
 )
-from fastx_toolkit_tpu_torch.kernels import _build, align_cuda, counts_cuda
-from fastx_toolkit_tpu_torch.ops.clipper import adapter_cutoff_index, clip_cut_lengths
+from fastx_toolkit_tpu_torch.kernels import (
+    _build,
+    align_cuda,
+    align_unpacked_cuda,
+    counts_cuda,
+)
+from fastx_toolkit_tpu_torch.kernels.align import align_batch
+from fastx_toolkit_tpu_torch.ops.clipper import (
+    adapter_cutoff_index,
+    clip_cut_lengths,
+    legacy_effective_query,
+)
 
 N_READS = 1_000_000
 READ_LEN = 100
 CHUNK = 262_144
 SEED = 42
+TRUSEQ = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+SMALL_RNA = b"TGGAATTCTCGGGTGCCAAGG"
 HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
             "fastq_quality_trimmer -t 20 | fastq_masker -q 20 | "
             "fastx_clipper -a CTGTAGGCACCATCAAT -l 5 -n | "
             "fastx_artifacts_filter")
+CLIPPER_ARGV = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
+KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked")
+META = {  # name -> (source, the TPU kernel it replaces)
+    "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed12.cu",
+                       "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
+    "packed_counts": ("fastx_toolkit_tpu_torch/csrc/packed_counts.cu",
+                      "fastx_toolkit_tpu/kernels/counts_pallas.py:31"),
+    "align_packed": ("fastx_toolkit_tpu_torch/csrc/align_packed.cu",
+                     "fastx_toolkit_tpu/kernels/align_pallas.py:638"),
+    "align_unpacked": ("fastx_toolkit_tpu_torch/csrc/align_unpacked.cu",
+                       "fastx_toolkit_tpu/kernels/align_pallas.py:157"),
+}
+# the least work a DP cell or a counted base needs, in int32 operations
+# (DP: ~10 for the score path — compares, selects, adds — and ~10 for the
+# path-statistic payload; counts: extract the code and the N bit, bump a
+# counter)
+DP_OPS_PER_CELL = 20
+COUNT_OPS_PER_BASE = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INT32_LANES = 132 * 64     # SMs x INT32 lanes
 
 
 def fail(msg):
     print("FAIL: " + msg, flush=True)
     sys.exit(1)
+
+
+def counters():
+    return {"align_packed12": align_cuda.launches,
+            "packed_counts": counts_cuda.launches,
+            "align_packed": align_cuda.wide_launches,
+            "align_unpacked": align_unpacked_cuda.launches}
+
+
+def reset_counters():
+    align_cuda.launches = align_cuda.wide_launches = 0
+    counts_cuda.launches = align_unpacked_cuda.launches = 0
 
 
 def record_cut(data: bytes, n_records: int) -> int:
@@ -97,12 +163,15 @@ def pack_lane_chunk(fr, cfg, device):
             torch.from_numpy(lengths).to(device), int(fr.seq_lens.max()))
 
 
-def adversarial(rng, B, L, adapter, n_frac, device):
-    """Random reads (N fraction ``n_frac``) with noisy adapters spiked in
-    and random lengths 0..L, as packed words (b2w, nmw) on ``device``."""
-    alpha = np.frombuffer(b"ACGTN", np.uint8)
-    p = [(1 - n_frac) / 4] * 4 + [n_frac]
-    bases = rng.choice(alpha, size=(B, L), p=p)
+def adversarial(rng, B, L, adapter, n_frac, alphabet=b"ACGTN"):
+    """Random reads over ``alphabet`` (N fraction ``n_frac`` when packed)
+    with noisy adapters spiked in and random lengths 0..L: ASCII
+    ``(bases, lengths)`` numpy arrays."""
+    alpha = np.frombuffer(alphabet, np.uint8)
+    if alphabet == b"ACGTN":
+        bases = rng.choice(alpha, size=(B, L), p=[(1 - n_frac) / 4] * 4 + [n_frac])
+    else:
+        bases = rng.choice(alpha, size=(B, L))
     pos = rng.integers(0, max(1, L - len(adapter)), B)
     ad = np.frombuffer(adapter, np.uint8)
     for j in range(len(ad)):
@@ -111,6 +180,12 @@ def adversarial(rng, B, L, adapter, n_frac, device):
         bases[m, (pos + j)[m]] = col[m]
     lengths = rng.integers(0, L + 1, B).astype(np.int32)
     bases[np.arange(L)[None, :] >= lengths[:, None]] = ord("A")
+    return bases, lengths
+
+
+def packed(bases, lengths, device):
+    """ACGTN reads as the packed kernels' words ``(b2w, nmw, lengths)``."""
+    B, L = bases.shape
     quals = np.full((B, L), 30, np.int8)
     b2, planes = native.pack2(np.ascontiguousarray(bases), quals, (), True)
     L32 = -(-L // 32) * 32
@@ -129,9 +204,28 @@ def compare(name, got, want, fields):
             bad = torch.nonzero(got[k] != want[k])[:5].flatten().tolist()
             fail("%s: field %s differs from the plain version (rows %s)"
                  % (name, k, bad))
-    print("  %-34s equal on %d fields, %d rows, max_abs_err=%d"
+    print("  %-40s equal on %d fields, %d rows, max_abs_err=%d"
           % (name, len(fields), len(got[fields[0]]), err), flush=True)
     return err
+
+
+@contextlib.contextmanager
+def k4_launch_inputs():
+    """Keep a device copy of the inputs of every K4 launch made inside the
+    block (a path run's own launches, at the path's shapes), so that each
+    can be held against the plain version after the run."""
+    seen = []
+    launch = align_unpacked_cuda._launch
+
+    def keep(bases, lengths, adapter, tie_flag):
+        seen.append((bases.clone(), lengths.clone(), adapter, tie_flag))
+        return launch(bases, lengths, adapter, tie_flag)
+
+    align_unpacked_cuda._launch = keep
+    try:
+        yield seen
+    finally:
+        align_unpacked_cuda._launch = launch
 
 
 def cuda_ms(fn, reps):
@@ -149,6 +243,15 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def dp_bound(cells, nbytes, clock_hz):
+    """(bound_ms, bound_by) for ``cells`` DP cells (or counted bases, with
+    the ops already multiplied in by the caller) and ``nbytes`` moved."""
+    t_ops = cells / (INT32_LANES * clock_hz)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def run_main_path(data, cfg, engines, arena):
     args = SimpleNamespace(input_filename="<lane>", q_offset=33)
     reader = BatchReader(None, args, filetype=codec.FASTQ_ONLY,
@@ -159,19 +262,46 @@ def run_main_path(data, cfg, engines, arena):
                                  engines=engines)
 
 
+def run_cli(tool, prog, argv, data):
+    """One in-process run of a CLI's ``tool_main`` with the launch
+    counters set to 0 just before: ``(status, stdout, report, seconds,
+    launches)``; the ``-v`` report goes to stderr, captured."""
+    stdout, stderr = io.BytesIO(), io.StringIO()
+    ctx = CliContext(prog=prog, stdin=io.BytesIO(data), stdout=stdout,
+                     stderr=stderr, stdout_text=sys.stdout)
+    reset_counters()
+    t0 = time.perf_counter()
+    status = tool.tool_main(ctx, argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return status, stdout.getvalue(), stderr.getvalue(), secs, counters()
+
+
+def check_bytes(label, got, want):
+    if got != want:
+        diff = next((i for i in range(min(len(got), len(want)))
+                     if got[i] != want[i]), min(len(got), len(want)))
+        fail("%s: output differs from the host reference at byte %d "
+             "(%d vs %d bytes)" % (label, diff, len(got), len(want)))
+
+
+def frames(data):
+    """The lane's FASTQ frames, CHUNK records each."""
+    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 0x0A)
+    n_rec = len(nl) // 4
+    pos = 0
+    for r0 in range(0, n_rec, CHUNK):
+        end = int(nl[4 * min(n_rec, r0 + CHUNK) - 1]) + 1
+        yield codec.frame_fastq_fast(data[pos:end])
+        pos = end
+
+
 def host_reference(data, cfg):
     """The lane's output rendered from float32 host decisions over every
     read (numpy and the native float32 clipper; no kernel runs)."""
     out = []
     n_kept = 0
-    pos = 0
-    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 0x0A)
-    n_rec = len(nl) // 4
-    for r0 in range(0, n_rec, CHUNK):
-        r1 = min(n_rec, r0 + CHUNK)
-        end = int(nl[4 * r1 - 1]) + 1
-        fr = codec.frame_fastq_fast(data[pos:end])
-        pos = end
+    for fr in frames(data):
         buf = np.frombuffer(fr.buf, np.uint8)
         lens = np.ascontiguousarray(fr.seq_lens)
         lm = int(lens.max())
@@ -187,6 +317,68 @@ def host_reference(data, cfg):
     return b"".join(out), n_kept
 
 
+def reader_over(data, filetype):
+    args = SimpleNamespace(input_filename="<lane>", q_offset=33)
+    return BatchReader(None, args, filetype=filetype, stream=io.BytesIO(data))
+
+
+def clipper_reference(data):
+    """Path (a)'s output and ``-v`` report from float32 host decisions over
+    every read, with the legacy stale-matrix emulation carried across
+    batches (numpy and the native float32 clipper; no kernel runs)."""
+    out = []
+    carry = None
+    n = np.zeros(6, np.int64)  # input, then categories 1-5
+    args = SimpleNamespace(q_offset=33)
+    for batch in reader_over(data, codec.FASTA_OR_FASTQ):
+        eff, widths, carry = legacy_effective_query(batch.bases,
+                                                    batch.lengths, carry)
+        new_len, write, cat = hostfix.clip_decide_np(
+            batch.bases, batch.lengths, SMALL_RNA, min_length=15,
+            keep_delta=0, discard_non_clipped=True, discard_clipped=False,
+            keep_n=False, show_adapter_only=False, min_adapter_len=0,
+            align_bases=eff, align_lengths=widths)
+        cols = np.arange(batch.bases.shape[1])[None, :]
+        batch.bases = np.where(cols < new_len[:, None], batch.bases, 0)
+        batch.quals = np.where(cols < new_len[:, None], batch.quals, 0)
+        batch.lengths = new_len
+        n[0] += len(batch)
+        for c in range(1, 6):
+            n[c] += int((cat == c).sum())
+        out.append(render_same_as_input(args, batch.select(write)))
+    n_in, n_zero, n_short, n_nonclip, _n_clip, n_n = (int(v) for v in n)
+    report = ("Clipping Adapter: %s\nMin. Length: 15\n"
+              "Non-Clipped reads - discarded.\nInput: %d reads.\n"
+              "Output: %d reads.\ndiscarded %d too-short reads.\n"
+              "discarded %d adapter-only reads.\n"
+              "discarded %d non-clipped reads.\ndiscarded %d N reads.\n"
+              % (SMALL_RNA.decode(), n_in,
+                 n_in - n_short - n_nonclip - n_n - n_zero, n_short, n_zero,
+                 n_nonclip, n_n))
+    return b"".join(out), report
+
+
+def pipeline_report(data, chain):
+    """Path (c)'s ``-v`` report from per-stage counts of the host replay
+    (``host_replay_chain``: numpy and the native float32 clipper)."""
+    ctx = CliContext(prog="fastx_pipeline")
+    cfgs, _fasta = fastx_pipeline._stage_configs(
+        ctx, fastx_pipeline.parse_chain(ctx, chain), True)
+    totals = np.zeros(len(cfgs), np.int64)
+    n_in = 0
+    for batch in reader_over(data, codec.FASTQ_ONLY):
+        *_, keep_after = fastx_pipeline.host_replay_chain(
+            cfgs, batch.bases, batch.quals, batch.lengths)
+        n_in += len(batch)
+        totals += [int(k.sum()) for k in keep_after]
+    lines = ["Fused pipeline: %d stages, one device program.\n" % len(cfgs),
+             "Input: %d reads.\n" % n_in]
+    lines += ["  %-28s -> %d reads.\n" % (c["kind"], int(t))
+              for c, t in zip(cfgs, totals)]
+    lines.append("Output: %d reads.\n" % int(totals[-1]))
+    return "".join(lines)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -198,9 +390,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print("[1 device] %s | nvidia-smi: %s | torch %s, CUDA %s"
-          % (name, smi, torch.__version__, torch.version.cuda), flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0])
+    print("[1 device] %s | nvidia-smi: %s | max SM clock %.0f MHz | torch "
+          "%s, CUDA %s" % (name, smi, clock_mhz, torch.__version__,
+                           torch.version.cuda), flush=True)
     card = "%s, %s" % (name, smi.split(",")[-1].strip())
+    clock_hz = clock_mhz * 1e6
 
     # 2. build
     t0 = time.perf_counter()
@@ -215,26 +413,27 @@ def main():
 
     # 3. kernels vs plain, on the card
     cfg = PipelineConfig()
+    cfg_ts = PipelineConfig(adapter=TRUSEQ)
     t0 = time.perf_counter()
-    data = bench.synth_lane_bytes(N_READS, READ_LEN, seed=SEED)
-    print("[3 kernels] lane: %d reads x %d bp, %d bytes (%.1f s)"
-          % (N_READS, READ_LEN, len(data), time.perf_counter() - t0),
-          flush=True)
-    fr = codec.frame_fastq_fast(data[:record_cut(data, CHUNK)])
-    b2, planes, lengths, seq_len = pack_lane_chunk(fr, cfg, dev)
-    l, _keep, b2w, nmw = packed_quality_stage(b2, planes, lengths, cfg,
-                                              has_n_plane=False)
-    adapter = cfg.adapter
-    errs = {"align_packed12": 0, "packed_counts": 0}
+    data = synth.synth_lane_bytes(N_READS, READ_LEN, seed=SEED)
+    data_ts = synth.synth_lane_bytes(N_READS, 150, seed=SEED + 1,
+                                     adapter=TRUSEQ)
+    data_rna = synth.synth_small_rna_lane_bytes(N_READS, 50, seed=SEED + 2)
+    print("[3 kernels] lanes: headline %d x %d bp (%d bytes), TruSeq %d x "
+          "150 bp (%d bytes), small-RNA %d x 50 bp (%d bytes) (%.1f s)"
+          % (N_READS, READ_LEN, len(data), N_READS, len(data_ts), N_READS,
+             len(data_rna), time.perf_counter() - t0), flush=True)
+    errs = dict.fromkeys(KERNELS, 0)
 
-    def k1_check(label, b2w_, nmw_, l_, adapter_, L_):
+    def k_packed_check(label, b2w_, nmw_, l_, adapter_, L_):
         got = align_cuda.align_batch_packed(b2w_, nmw_, l_, adapter_, L=L_,
                                             tie_flag=True)
         want = align_cuda.align_batch_packed_plain(b2w_, nmw_, l_, adapter_,
                                                    L=L_, tie_flag=True)
         torch.cuda.synchronize()
-        errs["align_packed12"] = max(errs["align_packed12"],
-                                     compare(label, got, want, FIELDS))
+        k = ("align_packed12" if align_cuda.packed12_ok(L_, len(adapter_))
+             else "align_packed")
+        errs[k] = max(errs[k], compare(label, got, want, FIELDS))
         return got
 
     def k2_check(label, b2w_, nmw_, l_):
@@ -245,59 +444,109 @@ def main():
         errs["packed_counts"] = max(errs["packed_counts"],
                                     compare(label, got, want, ("worst", "ncnt")))
 
-    res = k1_check("K1 lane 262144 flagged", b2w, nmw, l, adapter, seq_len)
-    n_flag = int(res["tie_fragile"].sum())
-    print("  (lane chunk: %d reads flagged tie_fragile)" % n_flag, flush=True)
-    k1_check("K1 lane 262144 nmw=None shortcut", b2w, None, l, adapter,
-             seq_len)
+    def k4_check(label, bases_, l_, adapter_, tie_flag=True):
+        got = align_unpacked_cuda.align_batch_unpacked(bases_, l_, adapter_,
+                                                       tie_flag=tie_flag)
+        want = align_batch(bases_, l_, adapter_, tie_flag=tie_flag)
+        torch.cuda.synchronize()
+        errs["align_unpacked"] = max(errs["align_unpacked"], compare(
+            label, got, want, FIELDS if tie_flag else FIELDS[:8]))
+        return got
+
+    def k4_path_check(path, seen, n_launches):
+        # after the run and its counters are read: these launches compare
+        if len(seen) != n_launches:
+            fail("path (%s): %d K4 launches counted, %d kept"
+                 % (path, n_launches, len(seen)))
+        for i, (b_, l_, ad_, tie_) in enumerate(seen):
+            k4_check("K4 path (%s) launch %d [%d x %d] H=%d"
+                     % (path, i, b_.shape[0], b_.shape[1], len(ad_)),
+                     b_, l_, ad_, tie_flag=tie_)
+
+    # K1 / K2 on the headline lane's first chunk
+    fr = codec.frame_fastq_fast(data[:record_cut(data, CHUNK)])
+    b2, planes, lengths, seq_len = pack_lane_chunk(fr, cfg, dev)
+    l, _keep, b2w, nmw = packed_quality_stage(b2, planes, lengths, cfg,
+                                              has_n_plane=False)
+    adapter = cfg.adapter
+    res = k_packed_check("K1 lane 262144 flagged", b2w, nmw, l, adapter,
+                         seq_len)
+    print("  (lane chunk: %d reads flagged tie_fragile)"
+          % int(res["tie_fragile"].sum()), flush=True)
+    k_packed_check("K1 lane 262144 nmw=None shortcut", b2w, None, l,
+                   adapter, seq_len)
     new_len = clip_cut_lengths(adapter_cutoff_index(res, l), l)
     k2_check("K2 lane 262144 post-clip", b2w, nmw, new_len)
     k2_check("K2 lane 262144 no N plane", b2w, None, new_len)
     rng = np.random.default_rng(SEED)
     h31 = b"CCTTAAGGCCTTAAGGCCTTAAGGCCTTAAG"
-    a_b2w, a_nmw, a_l = adversarial(rng, 8192, 100, h31, 0.05, dev)
-    k1_check("K1 adversarial H=31 L=100", a_b2w, a_nmw, a_l, h31, 100)
+    a_b2w, a_nmw, a_l = packed(*adversarial(rng, 8192, 100, h31, 0.05), dev)
+    k_packed_check("K1 adversarial H=31 L=100", a_b2w, a_nmw, a_l, h31, 100)
     k2_check("K2 adversarial L=100", a_b2w, a_nmw, a_l)
     nad = b"CTGNAGGCANCATCAAT"
-    k1_check("K1 adversarial N-adapter L=100", a_b2w, a_nmw, a_l, nad, 100)
-    a_b2w, a_nmw, a_l = adversarial(rng, 2048, 511, adapter, 0.03, dev)
-    k1_check("K1 adversarial H=17 L=511", a_b2w, a_nmw, a_l, adapter, 511)
+    k_packed_check("K1 adversarial N-adapter L=100", a_b2w, a_nmw, a_l, nad, 100)
+    a_b2w, a_nmw, a_l = packed(*adversarial(rng, 2048, 511, adapter, 0.03), dev)
+    k_packed_check("K1 adversarial H=17 L=511", a_b2w, a_nmw, a_l, adapter, 511)
     k2_check("K2 adversarial L=511", a_b2w, a_nmw, a_l)
 
-    # 4. main path: the fastx_pipeline CLI on the lane, on the card
-    stdout = io.BytesIO()
-    ctx = CliContext(prog="fastx_pipeline", stdin=io.BytesIO(data),
-                     stdout=stdout, stderr=sys.stderr, stdout_text=sys.stdout)
-    align_cuda.launches = 0
-    counts_cuda.launches = 0
-    t0 = time.perf_counter()
-    status = fastx_pipeline.tool_main(ctx, ["-Q", "33", HEADLINE])
-    cli_s = time.perf_counter() - t0
-    launches = {"align_packed12": align_cuda.launches,
-                "packed_counts": counts_cuda.launches}
-    got = stdout.getvalue()
+    # K3 on the TruSeq lane's first chunk (the masker's plane as the N
+    # plane, flags on), its no-N-plane shortcut, and H=72 at L=600
+    fr_ts = codec.frame_fastq_fast(data_ts[:record_cut(data_ts, CHUNK)])
+    b2, planes, lengths, seq_ts = pack_lane_chunk(fr_ts, cfg_ts, dev)
+    l_ts, _keep, b2w_ts, nmw_ts = packed_quality_stage(
+        b2, planes, lengths, cfg_ts, has_n_plane=False)
+    res = k_packed_check("K3 TruSeq lane 262144 flagged", b2w_ts, nmw_ts,
+                         l_ts, TRUSEQ, seq_ts)
+    print("  (TruSeq chunk: %d reads flagged tie_fragile)"
+          % int(res["tie_fragile"].sum()), flush=True)
+    k_packed_check("K3 TruSeq lane 262144 nmw=None", b2w_ts, None, l_ts,
+                   TRUSEQ, seq_ts)
+    h72 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCAC" * 2 + b"ATCT"
+    a_b2w, a_nmw, a_l = packed(*adversarial(rng, 2048, 600, h72, 0.05), dev)
+    k_packed_check("K3 adversarial H=72 L=600", a_b2w, a_nmw, a_l, h72, 600)
+    k_packed_check("K3 adversarial H=17 L=600", a_b2w, a_nmw, a_l, adapter, 600)
+
+    # K4 on the small-RNA lane's first chunk: ASCII, then the legacy
+    # emulation's effective bases and running-max widths
+    rna_batch = codec.parse(data_rna[:record_cut(data_rna, CHUNK)],
+                            filetype=codec.FASTQ_ONLY, q_offset=33)
+    rna_b = torch.from_numpy(rna_batch.bases).to(dev)
+    rna_l = torch.from_numpy(rna_batch.lengths.astype(np.int32)).to(dev)
+    k4_check("K4 small-RNA lane 262144 ASCII", rna_b, rna_l, SMALL_RNA)
+    eff, widths, _carry = legacy_effective_query(rna_batch.bases,
+                                                 rna_batch.lengths)
+    eff_b = torch.from_numpy(eff).to(dev)
+    eff_l = torch.from_numpy(widths).to(dev)
+    k4_check("K4 small-RNA legacy-effective bases", eff_b, eff_l, SMALL_RNA)
+    h99 = b"tggaattcUcgggtgccaagg" * 4 + b"ACGNNUuuuACGTNa"
+    a_b, a_l = adversarial(rng, 4096, 300, h99, 0.0,
+                           alphabet=b"ACGTNacgtnUu")
+    a_b, a_l = torch.from_numpy(a_b).to(dev), torch.from_numpy(a_l).to(dev)
+    k4_check("K4 adversarial H=99 lower/U L=300", a_b, a_l, h99)
+    k4_check("K4 small-RNA B=1", rna_b[:1], rna_l[:1], SMALL_RNA)
+    k4_check("K4 small-RNA B=300", rna_b[:300], rna_l[:300], SMALL_RNA)
+
+    # 4. paths, each against a host reference that never touches a kernel
+    launches = {}
+    path_s = {}
+    status, got, _rep, cli_s, ln = run_cli(fastx_pipeline, "fastx_pipeline",
+                                           ["-Q", "33", HEADLINE], data)
+    launches["main"] = ln
     t0 = time.perf_counter()
     want, want_kept = host_reference(data, cfg)
-    ref_s = time.perf_counter() - t0
-    print("[4 main] fastx_pipeline '%s': status %d, %d reads in, %d out, %d "
-          "bytes out (%.2f s); host reference %d reads out, %d bytes (%.1f "
-          "s); launches %s" % (HEADLINE, status, N_READS, got.count(b"\n") // 4,
-                               len(got), cli_s, want_kept, len(want), ref_s,
-                               launches), flush=True)
+    print("[4 paths] main: fastx_pipeline '%s': status %d, %d reads in, %d "
+          "out, %d bytes (%.2f s); host reference %d reads out (%.1f s); "
+          "launches %s" % (HEADLINE, status, N_READS, got.count(b"\n") // 4,
+                           len(got), cli_s, want_kept,
+                           time.perf_counter() - t0, ln), flush=True)
     if status != 0:
         fail("fastx_pipeline exited with status %d" % status)
-    if got != want:
-        diff = next((i for i in range(min(len(got), len(want)))
-                     if got[i] != want[i]), min(len(got), len(want)))
-        fail("main path output differs from the host reference at byte %d"
-             % diff)
+    check_bytes("main path", got, want)
     print("  output bytes equal the host reference", flush=True)
-    for k, v in launches.items():
-        if v <= 0:
-            fail("kernel %s was not launched by the main path" % k)
-    # the same chain through the library entry point (as bench.py drives
-    # it), which reports the reads re-decided on the host; also the
-    # warm-up of the timed runs below
+    if ln["align_packed12"] <= 0 or ln["packed_counts"] <= 0:
+        fail("main path: K1 or K2 was not launched (%s)" % ln)
+    # the same chain through the library entry point, which reports the
+    # reads re-decided on the host; also the warm-up of the timed runs
     engines = LineEngines(cfg, dev)
     arena = np.empty(len(data) + (1 << 20), np.uint8)
     n_in, n_out, nbytes = run_main_path(data, cfg, engines, arena)
@@ -308,6 +557,72 @@ def main():
     if (n_in, n_out) != (N_READS, want_kept) or bytes(arena[:nbytes]) != want:
         fail("stream_pipeline_lines output differs from the host reference")
 
+    # (a) the standalone clipper on the small-RNA lane
+    with k4_launch_inputs() as seen_a:
+        status, got, rep, path_s["a"], ln = run_cli(
+            fastx_clipper, "fastx_clipper", CLIPPER_ARGV, data_rna)
+    launches["a"] = ln
+    t0 = time.perf_counter()
+    want_a, want_rep = clipper_reference(data_rna)
+    print("  (a) fastx_clipper %s: status %d, %d reads out (%.2f s); host "
+          "reference (%.1f s); launches %s"
+          % (" ".join(CLIPPER_ARGV), status, got.count(b"\n") // 4,
+             path_s["a"], time.perf_counter() - t0, ln), flush=True)
+    if status != 0:
+        fail("fastx_clipper exited with status %d" % status)
+    check_bytes("path (a)", got, want_a)
+    if rep != want_rep:
+        fail("path (a): the -v report differs:\n%s---\n%s" % (rep, want_rep))
+    print("  (a) output bytes and -v report equal the host reference:\n    "
+          + rep.rstrip().replace("\n", "\n    "), flush=True)
+    if ln["align_unpacked"] <= 0:
+        fail("path (a): K4 was not launched (%s)" % ln)
+    k4_path_check("a", seen_a, ln["align_unpacked"])
+    del seen_a
+
+    # (b) the headline chain with the 33-base TruSeq adapter
+    chain_b = HEADLINE.replace(cfg.adapter.decode(), TRUSEQ.decode())
+    status, got, _rep, path_s["b"], ln = run_cli(
+        fastx_pipeline, "fastx_pipeline", ["-Q", "33", chain_b], data_ts)
+    launches["b"] = ln
+    t0 = time.perf_counter()
+    want_b, kept_b = host_reference(data_ts, cfg_ts)
+    print("  (b) fastx_pipeline '%s': status %d, %d reads out (%.2f s); host "
+          "reference %d out (%.1f s); launches %s"
+          % (chain_b, status, got.count(b"\n") // 4, path_s["b"], kept_b,
+             time.perf_counter() - t0, ln), flush=True)
+    if status != 0:
+        fail("path (b) exited with status %d" % status)
+    check_bytes("path (b)", got, want_b)
+    print("  (b) output bytes equal the host reference", flush=True)
+    if ln["align_packed"] <= 0 or ln["packed_counts"] <= 0 \
+            or ln["align_packed12"] != 0:
+        fail("path (b): expected K3 and K2 launches and no K1 (%s)" % ln)
+
+    # (c) -v: the classic per-batch loop on the headline lane
+    with k4_launch_inputs() as seen_c:
+        status, got, rep, path_s["c"], ln = run_cli(
+            fastx_pipeline, "fastx_pipeline", ["-v", "-Q", "33", HEADLINE],
+            data)
+    launches["c"] = ln
+    t0 = time.perf_counter()
+    want_rep = pipeline_report(data, HEADLINE)
+    print("  (c) fastx_pipeline -v: status %d, %d reads out (%.2f s); host "
+          "replay counts (%.1f s); launches %s"
+          % (status, got.count(b"\n") // 4, path_s["c"],
+             time.perf_counter() - t0, ln), flush=True)
+    if status != 0:
+        fail("path (c) exited with status %d" % status)
+    check_bytes("path (c)", got, want)
+    if rep != want_rep:
+        fail("path (c): the -v report differs:\n%s---\n%s" % (rep, want_rep))
+    print("  (c) output bytes and -v report equal the host reference:\n    "
+          + rep.rstrip().replace("\n", "\n    "), flush=True)
+    if ln["align_unpacked"] <= 0:
+        fail("path (c): K4 was not launched (%s)" % ln)
+    k4_path_check("c", seen_c, ln["align_unpacked"])
+    del seen_c
+
     # 5. times
     times = []
     for it in range(3):
@@ -317,42 +632,73 @@ def main():
         if bytes(arena[:nb]) != want:
             fail("timed run %d output differs" % it)
     med = sorted(times)[1]
-    print("[5 times] end to end: %.0f reads/s, %.1f MB/s in (median of 3 "
-          "after a warm-up; runs %s s) on %s"
+    print("[5 times] headline end to end: %.0f reads/s, %.1f MB/s in "
+          "(median of 3 after a warm-up; runs %s s) on %s"
           % (N_READS / med, len(data) / med / 1e6,
              ", ".join("%.3f" % t for t in times), card), flush=True)
-    ms = {
-        "align_packed12": cuda_ms(lambda: align_cuda.align_batch_packed(
-            b2w, nmw, l, adapter, L=seq_len, tie_flag=True), 10),
-        "packed_counts": cuda_ms(lambda: counts_cuda.packed_counts(
-            b2w, nmw, new_len), 20),
+    for p, what in (("a", "fastx_clipper small-RNA 1M x 50"),
+                    ("b", "fastx_pipeline TruSeq 1M x 150"),
+                    ("c", "fastx_pipeline -v (classic loop) 1M x 100")):
+        print("  path (%s) %s: %.0f reads/s (one run, %.3f s) on %s"
+              % (p, what, N_READS / path_s[p], path_s[p], card), flush=True)
+
+    # device times at the phase-3 shapes, with each run's work for the bound
+    lens_k1 = l.clamp(max=seq_len)
+    lens_k3 = l_ts.clamp(max=seq_ts)
+    shapes = {
+        "align_packed12": (
+            lambda: align_cuda.align_batch_packed(b2w, nmw, l, adapter,
+                                                  L=seq_len, tie_flag=True),
+            lambda: align_cuda.align_batch_packed_plain(
+                b2w, nmw, l, adapter, L=seq_len, tie_flag=True),
+            int(lens_k1.sum()) * len(adapter) * DP_OPS_PER_CELL,
+            (b2w.numel() + nmw.numel() + l.numel() + 9 * l.numel()) * 4,
+            "%d reads x %d bp, H=%d" % (CHUNK, seq_len, len(adapter))),
+        "packed_counts": (
+            lambda: counts_cuda.packed_counts(b2w, nmw, new_len),
+            lambda: counts_cuda.packed_counts_plain(b2w, nmw, new_len),
+            int(new_len.sum()) * COUNT_OPS_PER_BASE,
+            (b2w.numel() + nmw.numel() + 3 * new_len.numel()) * 4,
+            "%d reads x %d bp" % (CHUNK, seq_len)),
+        "align_packed": (
+            lambda: align_cuda.align_batch_packed(
+                b2w_ts, nmw_ts, l_ts, TRUSEQ, L=seq_ts, tie_flag=True),
+            lambda: align_cuda.align_batch_packed_plain(
+                b2w_ts, nmw_ts, l_ts, TRUSEQ, L=seq_ts, tie_flag=True),
+            int(lens_k3.sum()) * len(TRUSEQ) * DP_OPS_PER_CELL,
+            (b2w_ts.numel() + nmw_ts.numel() + 10 * l_ts.numel()) * 4,
+            "%d reads x %d bp, H=%d" % (CHUNK, seq_ts, len(TRUSEQ))),
+        "align_unpacked": (
+            lambda: align_unpacked_cuda.align_batch_unpacked(
+                rna_b, rna_l, SMALL_RNA, tie_flag=True),
+            lambda: align_batch(rna_b, rna_l, SMALL_RNA, tie_flag=True),
+            int(rna_l.clamp(max=rna_b.shape[1]).sum()) * len(SMALL_RNA)
+            * DP_OPS_PER_CELL,
+            rna_b.numel() + 10 * 4 * rna_l.numel(),
+            "%d reads x %d bp, H=%d" % (CHUNK, rna_b.shape[1],
+                                        len(SMALL_RNA))),
     }
-    plain_ms = {
-        "align_packed12": cuda_ms(lambda: align_cuda.align_batch_packed_plain(
-            b2w, nmw, l, adapter, L=seq_len, tie_flag=True), 2),
-        "packed_counts": cuda_ms(lambda: counts_cuda.packed_counts_plain(
-            b2w, nmw, new_len), 5),
-    }
-    for k in ms:
-        print("  %-15s %.3f ms (plain torch %.3f ms) per 262144 reads x %d "
-              "bp on %s" % (k, ms[k], plain_ms[k], seq_len, card), flush=True)
+    ms, plain_ms, bound = {}, {}, {}
+    for k, (fn, plain, ops, nbytes, shape) in shapes.items():
+        ms[k] = cuda_ms(fn, 10)
+        plain_ms[k] = cuda_ms(plain, 2)
+        bound[k] = dp_bound(ops, nbytes, clock_hz)
+        print("  %-15s %.3f ms (plain torch %.3f ms; bound %.4f ms by %s) "
+              "at %s on %s" % (k, ms[k], plain_ms[k], bound[k][0],
+                               bound[k][1], shape, card), flush=True)
 
     # 6. kernels
-    meta = {
-        "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed12.cu",
-                           "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
-        "packed_counts": ("fastx_toolkit_tpu_torch/csrc/packed_counts.cu",
-                          "fastx_toolkit_tpu/kernels/counts_pallas.py:31"),
-    }
+    total = {k: sum(ln[k] for ln in launches.values()) for k in KERNELS}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": meta[k][0],
-         "replaces": meta[k][1], "launches": launches[k],
-         "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k]}
-        for k in ms]}), flush=True)
+        {"name": k, "route": "cuda", "source": META[k][0],
+         "replaces": META[k][1], "launches": total[k],
+         "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bound[k][0], "bound_by": bound[k][1],
+         "library_ms": None}
+        for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
-        flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

@@ -6,21 +6,28 @@ hand-written CUDA kernels, and on the CPU through each kernel's plain
 PyTorch version.  Module names mirror the reference's so that each
 counterpart is easy to find:
 
-* ``engine/pipeline.py`` — ``PipelineConfig`` and the packed decisions
-  body (popcount filter, bit-trick trimmer, masker plane, K1, K2);
+* ``core/`` — the port's own host codec (framing, validation, packing,
+  rendering, the float32 clipper DP; ``native/fastx_codec.cpp`` built
+  with g++ at first import);
+* ``engine/pipeline.py`` — ``PipelineConfig`` and the decisions bodies
+  (the fully-packed body with K1/K3 and K2, the unpacked ones with K4);
+* ``engine/lines.py`` — the streaming raw-line engine;
 * ``kernels/align.py`` — the exact x10-integer adapter DP in plain torch;
-* ``kernels/align_cuda.py`` + ``csrc/align_packed12.cu`` — K1, the packed
-  adapter DP;
+* ``kernels/align_cuda.py`` + ``csrc/align_packed12.cu`` /
+  ``csrc/align_packed.cu`` — K1 and K3, the packed adapter DPs;
+* ``kernels/align_unpacked_cuda.py`` + ``csrc/align_unpacked.cu`` — K4,
+  the unpacked adapter DP;
 * ``kernels/counts_cuda.py`` + ``csrc/packed_counts.cu`` — K2, the packed
   per-read base counts;
-* ``engine/lines.py`` — the streaming raw-line engine;
-* ``cli/tools/fastx_pipeline.py`` — the fused-chain CLI
-  (``python -m fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline``).
+* ``ops/transforms.py``, ``ops/clipper.py`` — the per-read tools;
+* ``cli/tools/fastx_pipeline.py``, ``cli/tools/fastx_clipper.py`` — the
+  CLIs (``python -m fastx_toolkit_tpu_torch.cli.tools.<tool>``);
+* ``synth.py`` — seeded lanes; ``profile_paths.py`` — the card's busy
+  share per path.
 
-The package imports ``torch`` and never ``jax``; it reuses the reference's
-framework-free host codec (``fastx_toolkit_tpu.core``).  Every library
-entry point takes an explicit ``device``; the CLI resolves it once from
-``FASTX_TORCH_DEVICE`` (see :mod:`.device`).
+The package imports ``torch`` and never ``jax`` or anything of the JAX
+package.  Every library entry point takes an explicit ``device``; the
+CLIs resolve it once from ``FASTX_TORCH_DEVICE`` (see :mod:`.device`).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

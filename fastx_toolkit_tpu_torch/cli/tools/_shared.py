@@ -1,27 +1,47 @@
-"""Chunked FASTA/FASTQ reading for the port's tools.
+"""Shared glue for the port's tool front ends.
 
-Counterpart of ``fastx_toolkit_tpu/cli/tools/_shared.py::BatchReader``
-for one process: the reference reader's constructor imports its
-multi-host ``parallel`` package (and with it jax) to set up byte-range
-sharding, which the port does not have yet.  Chunking, format detection
-and parsing are the reference's (``fastx_toolkit_tpu.core.codec``), so
-chunks, line numbers and error texts are identical.
+Counterpart of ``fastx_toolkit_tpu/cli/tools/_shared.py`` for one
+process: ``BatchReader`` (chunked FASTA/FASTQ reading; the reference
+reader's constructor also sets up multi-host byte-range sharding, which
+the port does not have yet), ``render_same_as_input`` and
+``in_out_report``.  Chunking, format detection and parsing are the
+reference's (the port's copy of its codec), so chunks, line numbers and
+error texts are identical.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ...core import codec
 from ..common import ExitWithStatus
 
-BLOCK_BYTES = 64 * 1024 * 1024  # the reference reader's default block
+
+def render_same_as_input(args, batch) -> bytes:
+    """OUTPUT_SAME_AS_INPUT rendering to bytes: FASTA in -> FASTA out;
+    FASTQ in -> FASTQ out with each record keeping its own ASCII/numeric
+    quality encoding (fastx.c:296-306)."""
+    return codec.render(
+        batch,
+        out_fastq=batch.is_fastq,
+        ascii_qual=batch.qual_ascii if batch.is_fastq else True,
+        q_offset=args.q_offset,
+    )
+
+
+def in_out_report(rep, n_in: int, n_out: int):
+    rep.write("Input: %d reads.\n" % n_in)
+    rep.write("Output: %d reads.\n" % n_out)
 
 
 class BatchReader:
     """Yields ``(chunk_bytes, line_number_base)`` pairs cut at whole-record
-    boundaries (:meth:`iter_chunks`) and parses chunks on request
-    (:meth:`parse_chunk`)."""
+    boundaries (:meth:`iter_chunks`), parses chunks on request
+    (:meth:`parse_chunk`), and iterates parsed ReadBatch objects
+    (``__iter__``).  The block size defaults to FASTX_TPU_BLOCK_BYTES
+    (64 MiB), as in the reference."""
 
     def __init__(self, ctx, args, *, filetype, allow_n=True, allow_u=False,
                  block_bytes=None, stream=None):
@@ -30,7 +50,8 @@ class BatchReader:
         self.filetype = filetype
         self.allow_n = allow_n
         self.allow_u = allow_u
-        self.block_bytes = block_bytes or BLOCK_BYTES
+        self.block_bytes = block_bytes or int(
+            os.environ.get("FASTX_TPU_BLOCK_BYTES", 64 * 1024 * 1024))
         if stream is not None:
             self._stream = stream
         elif args.input_filename == "-" or args.input_filename.startswith("-"):
@@ -83,3 +104,7 @@ class BatchReader:
             input_name=self.args.input_filename,
             line_number_base=line_base, is_fastq=self.is_fastq,
         )
+
+    def __iter__(self):
+        for chunk, line_base in self.iter_chunks():
+            yield self.parse_chunk(chunk, line_base)

@@ -3,14 +3,19 @@ the card.
 
 Counterpart of ``fastx_toolkit_tpu/cli/tools/fastx_pipeline.py``: the
 chain grammar (``parse_chain``, ``_stage_configs``, ``chain_to_config``)
-is the reference's, copied because the reference module imports jax, and
-the tool runs the raw-line streaming engine (``engine/lines.py``) on the
-device ``FASTX_TORCH_DEVICE`` names (default ``cuda``).  Output is
-byte-identical to the reference tool's.
+and ``host_replay_chain`` are the reference's, copied; ``build_step`` is
+the reference's traced step as an eager torch function.  The tool runs
+on the device ``FASTX_TORCH_DEVICE`` names (default ``cuda``):
 
-Not yet ported (each reports ``not supported yet``): ``-v`` and the
-classic per-batch loop it needs, FASTA input, and chains the fused
-engine cannot map (e.g. ``fastx_reverse_complement``, clipper ``-c``).
+* FASTQ chains that map onto the fused configuration, without ``-v``,
+  stream through the raw-line engine (``engine/lines.py``);
+* everything else — ``-v`` (per-stage counts), FASTA input, stages out of
+  the canonical order, clipper ``-d/-c/-C/-k/-M``,
+  ``fastx_reverse_complement``, ``fasta_nucleotide_changer`` — runs the
+  classic per-batch loop: parse, :func:`build_step` on the card (its DP
+  is K4), the float32 host replay of tie-fragile reads, render.
+
+Output and reports are byte-identical to the reference tool's.
 
 Usage:
     python -m fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline \\
@@ -20,12 +25,21 @@ Usage:
 from __future__ import annotations
 
 import itertools
+import os
 import shlex
 import sys
 
-from ...core import codec
+import numpy as np
+import torch
+
+from ...core import codec, native
+from ...core.records import BaseCode, StringColumn
 from ...device import resolve_device
+from ...engine import hostfix
 from ...engine.lines import stream_pipeline_lines
+from ...engine.pipeline import to_device
+from ...ops import transforms
+from ...ops.clipper import clip_batch
 from .. import common
 from ..common import CliContext, errx
 from ._shared import BatchReader
@@ -168,7 +182,7 @@ def chain_to_config(cfgs):
     subsequence of the canonical preprocessing order with each stage at
     most once and only fused-supported flags.  Returns
     (PipelineConfig, out_fastq), or None for a chain that needs the
-    classic per-batch loop (a later port slice)."""
+    classic per-batch loop."""
     from ...engine.pipeline import PipelineConfig
 
     pos = -1
@@ -213,6 +227,173 @@ def chain_to_config(cfgs):
     return PipelineConfig(**kw), out_fastq
 
 
+def build_step(cfgs, tie_fix: bool = True):
+    """The whole chain as one function on the batch's device.
+
+    Returns fn(bases, quals, lengths, counts) ->
+    (bases, quals, lengths, keep, per_stage_out_counts, first_forbidden,
+    fragile).  With ``tie_fix`` the clipper stages flag float-fragile
+    reads; those rows are EXCLUDED from the per-stage counts (the caller
+    re-adds their host-replayed contributions) and replayed on the host
+    with the float32 engine.
+    """
+
+    def step(bases, quals, lengths, counts):
+        b, q, l = bases, quals, lengths  # noqa: E741
+        dev = b.device
+        keep = torch.ones(b.shape[0], dtype=torch.bool, device=dev)
+        fragile = torch.zeros(b.shape[0], dtype=torch.bool, device=dev)
+        stage_counts = []
+        first_forbidden = torch.full((b.shape[0],), b.shape[1],
+                                     dtype=torch.int32, device=dev)
+        for c in cfgs:
+            k = c["kind"]
+            if k == "fastx_trimmer":
+                b, q, l, k2 = transforms.trimmer(  # noqa: E741
+                    b, q, l, first=c["first"], last=c["last"],
+                    trim_end=c["trim_end"], min_len=c["min_len"],
+                )
+                keep &= k2
+            elif k == "fastq_quality_filter":
+                keep &= transforms.quality_filter_keep(
+                    q, l, min_quality=c["q"], min_percent=c["p"]
+                )
+            elif k == "fastq_quality_trimmer":
+                b, q, l, k2 = transforms.quality_trimmer(  # noqa: E741
+                    b, q, l, threshold=c["t"], min_len=c["l"]
+                )
+                keep &= k2
+            elif k == "fastq_masker":
+                b, _, _ = transforms.masker(
+                    b, q, l, threshold=c["q"], mask_char=c["mask"]
+                )
+            elif k == "fastx_clipper":
+                out = clip_batch(
+                    b, q, l, adapter=c["adapter"], min_length=c["min_length"],
+                    keep_delta=c["keep_delta"],
+                    discard_non_clipped=c["discard_non_clipped"],
+                    discard_clipped=c["discard_clipped"], keep_n=c["keep_n"],
+                    show_adapter_only=c["show_adapter_only"],
+                    min_adapter_len=c["min_adapter"], tie_flag=tie_fix,
+                )
+                b, q, l, wrote = out[:4]  # noqa: E741
+                if tie_fix:
+                    fragile |= out[5]
+                keep &= wrote
+            elif k == "fastx_artifacts_filter":
+                keep &= transforms.artifacts_keep(b, l)
+            elif k == "fastx_reverse_complement":
+                b, q = transforms.reverse_complement(b, q, l,
+                                                     is_fastq=c["is_fastq"])
+            elif k == "fasta_nucleotide_changer":
+                b, _nchg, fb = transforms.nucleotide_changer(
+                    b, l, rna_mode=c["rna"])
+                # a forbidden char aborts the reference tool; only reads
+                # that actually reach this stage count
+                first_forbidden = torch.minimum(
+                    first_forbidden, torch.where(keep, fb, b.shape[1]))
+            elif k == "fastq_to_fasta":
+                if not c["keep_n"]:
+                    keep &= ~transforms.contains_n(b, l)
+            stage_counts.append(keep.clone())
+        # fragile rows are excluded from every stage tally: the caller
+        # re-adds their host-replayed contributions
+        counts_eff = torch.where(fragile, 0, counts).to(torch.int64)
+        stage_totals = torch.stack(
+            [torch.where(kk, counts_eff, 0).sum() for kk in stage_counts])
+        return (b, q, l, keep, stage_totals, first_forbidden.min(),
+                fragile)
+
+    return step
+
+
+def host_replay_chain(cfgs, bases, quals, lengths):
+    """numpy replay of build_step for a (small) subset of reads, with the
+    clipper stages decided by the bit-faithful float32 engine — the
+    tie-fragile override of the classic per-batch path (mirrors
+    engine/hostfix.py for the fused-engine path).  Returns
+    (bases, quals, lengths, keep, keep_after_stage list)."""
+    b = np.asarray(bases, np.uint8).copy()
+    q = np.asarray(quals, np.int16).copy()
+    l = np.asarray(lengths, np.int32).copy()  # noqa: E741
+    n, W = b.shape
+    cols = np.arange(W)[None, :]
+    keep = np.ones(n, bool)
+    keep_after = []
+    for c in cfgs:
+        k = c["kind"]
+        in_len = cols < l[:, None]
+        if k == "fastx_trimmer":
+            if c["last"] != 0:
+                l = np.minimum(l, c["last"])  # noqa: E741
+            if c["first"] != 1:
+                # the device step slices the width down (transforms.trimmer);
+                # mirror it so patched rows match the device output shape
+                f = c["first"]
+                keep &= l >= f
+                b = b[:, f - 1:]
+                q = q[:, f - 1:]
+                W = b.shape[1]
+                cols = np.arange(W)[None, :]
+                l = l - (f - 1)  # noqa: E741
+            if c["trim_end"] > 0:
+                keep &= l > c["trim_end"]
+                l = l - c["trim_end"]  # noqa: E741
+                keep &= l >= c["min_len"]
+            l = np.maximum(l, 0)  # noqa: E741
+            b = np.where(cols < l[:, None], b, 0).astype(np.uint8)
+            q = np.where(cols < l[:, None], q, 0)
+        elif k == "fastq_quality_filter":
+            below = ((q < c["q"]) & in_len).sum(axis=1)
+            keep &= below <= (l * (100 - c["p"])) // 100
+        elif k == "fastq_quality_trimmer":
+            passing = in_len & (q >= c["t"])
+            pos1 = np.where(passing, cols + 1, 0)
+            new_l = pos1.max(axis=1).astype(np.int32)
+            keep &= (new_l > 0) & (new_l >= c["l"])
+            l = new_l  # noqa: E741
+            b = np.where(cols < l[:, None], b, 0).astype(np.uint8)
+            q = np.where(cols < l[:, None], q, 0)
+        elif k == "fastq_masker":
+            b = np.where(in_len & (q < c["q"]), np.uint8(c["mask"]), b)
+        elif k == "fastx_clipper":
+            new_len, write, _cat = hostfix.clip_decide_np(
+                b, l, c["adapter"], min_length=c["min_length"],
+                keep_delta=c["keep_delta"],
+                discard_non_clipped=c["discard_non_clipped"],
+                discard_clipped=c["discard_clipped"], keep_n=c["keep_n"],
+                show_adapter_only=c["show_adapter_only"],
+                min_adapter_len=c["min_adapter"],
+            )
+            keep &= write
+            l = new_len.astype(np.int32)  # noqa: E741
+            b = np.where(cols < l[:, None], b, 0).astype(np.uint8)
+            q = np.where(cols < l[:, None], q, 0)
+        elif k == "fastx_artifacts_filter":
+            worst = np.zeros(n, np.int64)
+            for ch in b"ACGT":
+                worst = np.maximum(
+                    worst, ((b == ch) & (cols < l[:, None])).sum(axis=1)
+                )
+            keep &= ~(worst >= l - 3)
+        elif k == "fastx_reverse_complement":
+            comp = np.asarray(BaseCode.COMPLEMENT)[b.astype(np.int32)]
+            idx = np.where(cols < l[:, None],
+                           l[:, None] - 1 - cols, cols)
+            b = np.take_along_axis(comp, idx, axis=1).astype(np.uint8)
+            if c["is_fastq"]:
+                q = np.take_along_axis(q, idx, axis=1)
+        elif k == "fasta_nucleotide_changer":
+            src, dst = (b"T", b"U") if c["rna"] else (b"U", b"T")
+            hit = (b == src[0]) & (cols < l[:, None])
+            b = np.where(hit, np.uint8(dst[0]), b)
+        elif k == "fastq_to_fasta":
+            if not c["keep_n"]:
+                keep &= ~(((b == ord("N")) & (cols < l[:, None])).any(axis=1))
+        keep_after.append(keep.copy())
+    return b, q, l, keep, keep_after
+
+
 def tool_main(ctx: CliContext, argv) -> int:
     # the chain spec is the last (quoted) operand; everything before it
     # is standard common flags handled by the shared parser
@@ -242,32 +423,110 @@ def tool_main(ctx: CliContext, argv) -> int:
         allow_u=has_changer,
     )
     writer = common.OutputWriter(ctx, args)
+    device = resolve_device()
+
+    step = None
+    cfgs = fasta_mode = None
+    n_in = 0
+    out_ordinal = 0
+    stage_totals = None
+    rename_output = False
+    tie_fix = False
     chunks = reader.iter_chunks()
     first_chunk = next(chunks, None)
     if first_chunk is not None:
-        cfgs, _fasta_mode = _stage_configs(ctx, stages, reader.is_fastq)
-        if args.verbose:
-            raise NotImplementedError(
-                "-v needs the per-stage counts of the classic per-batch "
-                "loop, a later port slice")
-        if not reader.is_fastq:
-            raise NotImplementedError(
-                "FASTA input runs the classic per-batch loop, a later port "
-                "slice")
-        mapped = chain_to_config(cfgs)
-        if mapped is None:
-            raise NotImplementedError(
-                "this chain needs the classic per-batch loop (stages out of "
-                "the canonical order or flags the fused engine does not "
-                "map), a later port slice")
-        eng_cfg, eng_out_fastq = mapped
-        stream_pipeline_lines(
-            reader, eng_cfg, out_fastq=eng_out_fastq,
-            q_offset=args.q_offset, write=writer.write,
-            device=resolve_device(),
-            chunks=itertools.chain([first_chunk], chunks),
+        cfgs, fasta_mode = _stage_configs(ctx, stages, reader.is_fastq)
+        # the raw-line engine takes fused-supported FASTQ chains; -v needs
+        # per-stage counts that only the classic per-batch loop tallies
+        mapped = None
+        if reader.is_fastq and not args.verbose and native.LIB is not None:
+            mapped = chain_to_config(cfgs)
+        if mapped is not None:
+            eng_cfg, eng_out_fastq = mapped
+            stream_pipeline_lines(
+                reader, eng_cfg, out_fastq=eng_out_fastq,
+                q_offset=args.q_offset, write=writer.write, device=device,
+                chunks=itertools.chain([first_chunk], chunks),
+            )
+            writer.close()
+            return 0
+        chunks = itertools.chain([first_chunk], chunks)
+    else:
+        chunks = ()
+
+    for chunk, line_base in chunks:
+        batch = reader.parse_chunk(chunk, line_base)
+        if step is None:
+            rename_output = any(
+                c["kind"] == "fastq_to_fasta" and c.get("rename") for c in cfgs
+            )
+            tie_fix = not os.environ.get("FASTX_TPU_NO_TIE_FIX")
+            step = build_step(cfgs, tie_fix=tie_fix)
+            stage_totals = np.zeros(len(cfgs), np.int64)
+        bases, quals, lengths, counts = to_device(batch)
+        b, q, l, keep, scounts, min_fb, fragile = step(  # noqa: E741
+            *(torch.from_numpy(a).to(device)
+              for a in (bases, quals, lengths, counts)))
+        if int(min_fb) < b.shape[1]:
+            # reproduce fasta_nucleotide_changer's abort (position is
+            # approximate to the batch; the reference reports per line)
+            errx(ctx, "invalid nucleotide in pipeline input "
+                 "(fasta_nucleotide_changer)")
+        n_in += int(batch.counts.sum())
+        stage_totals += scounts.cpu().numpy().astype(np.int64)
+        b = b.cpu().numpy()
+        q = q.cpu().numpy()
+        l = l.cpu().numpy().copy()  # noqa: E741
+        keep = keep.cpu().numpy().copy()
+        frag = fragile.cpu().numpy() if tie_fix else None
+        if tie_fix and frag.any():
+            # float-tie fragile rows: replay the whole chain on the host
+            # with the float32 clipper so output matches the C exactly;
+            # the device excluded these rows from its stage tallies
+            idx = np.nonzero(frag)[0]
+            fb2, fq2, fl2, fk2, fka = host_replay_chain(
+                cfgs, bases[idx], quals[idx], lengths[idx]
+            )
+            b = b.copy()
+            q = q.copy()
+            b[idx] = fb2
+            q[idx] = fq2
+            l[idx] = fl2
+            cnt = counts[idx]
+            for si in range(len(cfgs)):
+                stage_totals[si] += int(cnt[fka[si]].sum())
+            keep[idx] = fk2
+        batch.bases = b
+        batch.quals = q
+        batch.lengths = l
+        out = batch.select(keep)
+        if rename_output:
+            names = [b"%d" % (out_ordinal + i + 1) for i in range(len(out))]
+            out.names = StringColumn.from_list(names)
+            out.names2 = StringColumn.from_list([b""] * len(out))
+        out_ordinal += len(out)
+        writer.write(
+            codec.render(
+                out,
+                out_fastq=(out.is_fastq and not fasta_mode),
+                ascii_qual=out.qual_ascii if out.is_fastq else True,
+                q_offset=args.q_offset,
+            )
         )
     writer.close()
+
+    if step is None:
+        return 0
+    if args.verbose:
+        # one process: the counts are plain sums (the reference allsums
+        # them across its process group)
+        rep = common.report_stream(ctx, args)
+        rep.write("Fused pipeline: %d stages, one device program.\n"
+                  % len(cfgs))
+        rep.write("Input: %d reads.\n" % n_in)
+        for c, total in zip(cfgs, stage_totals):
+            rep.write("  %-28s -> %d reads.\n" % (c["kind"], int(total)))
+        rep.write("Output: %d reads.\n" % int(stage_totals[-1]))
     return 0
 
 

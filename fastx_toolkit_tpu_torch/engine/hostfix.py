@@ -3,10 +3,10 @@
 Counterpart of ``fastx_toolkit_tpu/engine/hostfix.py:22-128``.  The
 device DP runs exact-decimal arithmetic; the reference's float32 engine
 can resolve an exact tie that involves a neutral (N) score differently.
-K1 flags such reads (tie_fragile) and the line engine re-decides only
-those here, with the native codec's bit-faithful float32 clipper DP
-(``native.clip_float``), so the output matches the reference byte for
-byte.  Pure numpy: the fragile subset is tiny and costs no device round
+The DP kernels flag such reads (tie_fragile) and the line engine, the
+pipeline CLI and the clipper CLI re-decide only those here, with the
+native codec's bit-faithful float32 clipper DP (``native.clip_float``),
+so the output matches the reference byte for byte.  Pure numpy: the fragile subset is tiny and costs no device round
 trip.
 """
 
@@ -18,40 +18,62 @@ from ..core import native
 from ..kernels.align import _N
 
 
-def cutoff_index_np(res, lengths):
-    """numpy adapter_cutoff_index (ops/clipper.py)."""
+def cutoff_index_np(res, lengths, min_adapter_len: int = 0):
+    """numpy adapter_cutoff_index (ops/clipper.py), for host fixes."""
     size = res["neutral"] + res["matches"] + res["mismatches"] + res["gaps"]
     m = res["matches"]
     pct = np.where(size > 0, (m * 100) // np.maximum(size, 1), 0)
+    ok = size != 0
+    if min_adapter_len > 0:
+        ok &= size >= min_adapter_len
     qe, ts = res["query_end"], res["target_start"]
     r1 = (qe == lengths - 1) & (res["mismatches"] == 0)
     r2 = (size > 5) & (ts == 0) & (pct >= 75)
     r3 = (size > 11) & (pct >= 80)
     r4 = (qe >= lengths - 2) & (size <= 5) & (m >= 3)
-    accept = (size != 0) & (r1 | r2 | r3 | r4)
+    accept = ok & (r1 | r2 | r3 | r4)
     return np.where(accept, res["query_start"], -1).astype(np.int64)
 
 
 def clip_decide_np(bases, lengths, adapter: bytes, *, min_length: int,
-                   keep_n: bool):
-    """Float32 clipper outcome for a subset, ``(new_len, write)``: the
-    fused chain's clip and discard cascade (ops/clipper.py; the clipper
-    CLI's -d/-c/-C/-k/-M options are a later port slice)."""
+                   keep_delta: int, discard_non_clipped: bool,
+                   discard_clipped: bool, keep_n: bool,
+                   show_adapter_only: bool, min_adapter_len: int,
+                   align_bases=None, align_lengths=None):
+    """Float32 clipper outcome for a subset: ``(new_len, write, cat)``,
+    mirroring ops/clipper.clip_batch's cascade exactly; ``align_bases`` /
+    ``align_lengths`` feed the DP the legacy emulation's view of the
+    reads."""
     if native.LIB is None:
         raise RuntimeError("the float32 tie re-decision needs the native "
                            "codec (the numpy float32 DP is a later port "
                            "slice)")
     bases = np.asarray(bases, np.uint8)
     lengths = np.asarray(lengths, np.int64)
-    res = native.clip_float(bases, lengths, adapter)
-    i = cutoff_index_np(res, lengths)
-    new_len = np.where(i > 0, np.minimum(lengths, i), lengths).astype(
+    ab = bases if align_bases is None else np.asarray(align_bases, np.uint8)
+    al = lengths if align_lengths is None else np.asarray(align_lengths,
+                                                         np.int64)
+    res = native.clip_float(ab, al, adapter)
+    i = cutoff_index_np(res, lengths, min_adapter_len)
+    cut = np.where(i > 0, i + keep_delta, i)
+    new_len = np.where(cut > 0, np.minimum(lengths, cut), lengths).astype(
         np.int32
     )
     cols = np.arange(bases.shape[1])[None, :]
     has_n = ((bases == _N) & (cols < new_len[:, None])).any(axis=1)
-    write = (i != 0) & (new_len >= min_length) & (keep_n | ~has_n)
-    return new_len, write
+    cat = np.zeros(len(new_len), np.int32)
+    c_zero = i == 0
+    c_short = ~c_zero & (new_len < min_length)
+    c_nonclip = ~c_zero & ~c_short & (i == -1) & discard_non_clipped
+    c_clip = ~c_zero & ~c_short & ~c_nonclip & (i > 0) & discard_clipped
+    c_n = ~c_zero & ~c_short & ~c_nonclip & ~c_clip & has_n & (not keep_n)
+    cat[c_zero] = 1
+    cat[c_short] = 2
+    cat[c_nonclip] = 3
+    cat[c_clip] = 4
+    cat[c_n] = 5
+    write = c_zero if show_adapter_only else (cat == 0)
+    return new_len, write, cat
 
 
 def host_decide(cfg, bases, quals, lengths):
@@ -84,9 +106,11 @@ def host_decide(cfg, bases, quals, lengths):
     eff = np.where(in_len, eff, 0).astype(np.uint8)
 
     if cfg.with_clip:
-        new_len, write = clip_decide_np(
-            eff, l, cfg.adapter, min_length=cfg.clip_minlen,
-            keep_n=cfg.clip_keep_n,
+        new_len, write, _cat = clip_decide_np(
+            eff, l, cfg.adapter, min_length=cfg.clip_minlen, keep_delta=0,
+            discard_non_clipped=False, discard_clipped=False,
+            keep_n=cfg.clip_keep_n, show_adapter_only=False,
+            min_adapter_len=0,
         )
         keep &= write
         l = new_len  # noqa: E741

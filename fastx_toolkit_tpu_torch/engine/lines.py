@@ -24,9 +24,11 @@ across threads.)
 
 Chunks the reference sends down its classic unpacked path (numeric
 qualities, byte errors, non-ACGTN alphabets, reads over 25,000 bp) are
-parsed first, so a malformed chunk raises the reference's exact
-FastxError, and otherwise raise NotImplementedError: the classic path is
-a later port slice.
+parsed in full (a malformed chunk raises the reference's exact
+FastxError), padded to the reference's width and dispatched, in
+read order between the fast spans, through the unpacked decisions body
+(``engine/pipeline.py::decisions_pipeline``, whose DP is K4); they render
+through ``codec.render`` with each record's own quality representation.
 
 The reference memoizes traced programs and must invalidate them when a
 trace-time env knob changes (its ``_TRACE_ENV_KNOBS``); the port runs
@@ -48,16 +50,15 @@ import torch
 
 from ..core import codec, native
 from .pipeline import (
+    _STATS,
     PipelineConfig,
     _thresholds,
+    decisions_pipeline,
     packed_decisions_pipeline,
-    packed_fast_ok,
+    to_device,
 )
 
 CHUNK = int(os.environ.get("FASTX_TPU_CHUNK", 262144))
-
-_CLASSIC = ("the classic unpacked path (numeric qualities, non-ACGTN "
-            "alphabets, reads over 25,000 bp) is a later port slice")
 
 
 class _Dispatch:
@@ -107,6 +108,25 @@ class LineEngines:
                             pin_memory=pin),
                 torch.zeros(B, dtype=torch.int16, pin_memory=pin))
 
+    def _run(self, body, host_in):
+        """Run ``body`` on the device over the host inputs; on CUDA the
+        uploads, the body and the copies of its results back into pinned
+        buffers are queued on the engine's stream, and an event marks
+        their end."""
+        if self.stream is None:
+            return _Dispatch(body(*host_in))
+        with torch.cuda.stream(self.stream):
+            dev_in = [torch.as_tensor(t).to(self.device, non_blocking=True)
+                      for t in host_in]
+            outs = body(*dev_in)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True).copy_(
+                                         t, non_blocking=True)
+                         for t in outs)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        return _Dispatch(host, ev, host_in)
+
     def fn2(self, has_n: bool):
         """The dispatch function for 2-bit chunks with (``has_n``) or
         without an N plane: ``(b2, planes, lengths)`` host tensors ->
@@ -115,25 +135,22 @@ class LineEngines:
 
         def run(b2, planes, lengths):
             seq_len = int(lengths.max()) if len(lengths) else 0
-            if self.stream is None:
-                return _Dispatch(packed_decisions_pipeline(
-                    self.cfg, b2, planes, lengths, has_n_plane=has_n,
-                    device=self.device, tie_flag=tie, seq_len=seq_len))
-            with torch.cuda.stream(self.stream):
-                dev_in = [t.to(self.device, non_blocking=True)
-                          for t in (b2, planes, lengths)]
-                outs = packed_decisions_pipeline(
-                    self.cfg, *dev_in, has_n_plane=has_n,
-                    device=self.device, tie_flag=tie, seq_len=seq_len)
-                host = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True).copy_(
-                                             t, non_blocking=True)
-                             for t in outs)
-                ev = torch.cuda.Event()
-                ev.record(self.stream)
-            return _Dispatch(host, ev, (b2, planes, lengths))
+            return self._run(
+                lambda *a: packed_decisions_pipeline(
+                    self.cfg, *a, has_n_plane=has_n, device=self.device,
+                    tie_flag=tie, seq_len=seq_len),
+                (b2, planes, lengths))
 
         return run
+
+    def unpacked(self):
+        """The dispatch function for classic chunks: width-padded ``(bases,
+        quals, lengths)`` host arrays -> :class:`_Dispatch`."""
+        tie = self.tie
+        return lambda bases, quals, lengths: self._run(
+            lambda *a: decisions_pipeline(self.cfg, *a, device=self.device,
+                                          tie_flag=tie),
+            (bases, quals, lengths))
 
 
 def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
@@ -153,10 +170,8 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
     """
     if native.LIB is None:
         raise RuntimeError("stream_pipeline_lines requires the native codec")
-    if not packed_fast_ok(cfg, 0):
-        raise NotImplementedError(
-            "chain outside the packed decisions body (stats, or an adapter "
-            "outside ACGTN or over 31 bases): a later port slice")
+    if cfg.with_stats:
+        raise NotImplementedError(_STATS)
     if engines is None:
         engines = LineEngines(cfg, device)
     if chunks is None:
@@ -282,17 +297,22 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
                     if not pure:
                         fr = None
                 if fr is None:
-                    # keep the reference's order: pending spans first, then
-                    # the full parse (which raises its exact error text)
+                    # classic chunk: flush pending spans first so the
+                    # decisions stay in read order, then dispatch the
+                    # parsed batch through the unpacked body
                     flush_all()
-                    reader.parse_chunk(chunk, line_base)
-                    raise NotImplementedError(_CLASSIC)
+                    batch = reader.parse_chunk(chunk, line_base)
+                    bases, quals, lengths, _counts = to_device(batch)
+                    fut = engines.unpacked()(bases, quals, lengths)
+                    blocks_q.put(("classic", batch))
+                    inflight_q.put((len(batch), fut))
+                    continue
                 if has_n and not any_n and pend:
                     # an N-bearing chunk after N-free ones changes the
                     # packed-plane layout; flush so dispatches stay uniform
                     flush_all()
                 any_n = any_n or has_n
-                blocks_q.put(fr)
+                blocks_q.put(("fast", fr))
                 segs.append((fr, 0, len(fr)))
                 pend += len(fr)
                 while pend >= chunk_rows:
@@ -314,42 +334,56 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
     n_total = 0
     n_out = 0
     out_pos = 0
-    cur = None  # [block, new_len, keep, fill, fragile]
+    cur = None  # [kind, block, new_len, keep, fill, fragile]
     spill_len = spill_keep = spill_frag = None
     mask_thr = cfg.mask_q if cfg.with_mask else None
 
     def next_block():
         nonlocal cur, spill_len, spill_keep, spill_frag
-        blk = blocks_q.get()
-        if blk is None:
+        item = blocks_q.get()
+        if item is None:
             cur = None
             return False
+        kind, blk = item
         n = len(blk)
-        cur = [blk, np.empty(n, np.int32), np.empty(n, bool), 0,
+        cur = [kind, blk, np.empty(n, np.int32), np.empty(n, bool), 0,
                np.zeros(n, bool) if tie else None]
         if spill_len is not None:
             take = min(len(spill_len), n)
-            cur[1][:take] = spill_len[:take]
-            cur[2][:take] = spill_keep[:take]
+            cur[2][:take] = spill_len[:take]
+            cur[3][:take] = spill_keep[:take]
             if tie:
-                cur[4][:take] = spill_frag[:take]
-            cur[3] = take
+                cur[5][:take] = spill_frag[:take]
+            cur[4] = take
             more = take < len(spill_len)
             spill_len = spill_len[take:] if more else None
             spill_keep = spill_keep[take:] if more else None
             spill_frag = spill_frag[take:] if (more and tie) else None
         return True
 
-    def render_block(blk, new_len, keep):
+    def render_block(kind, blk, new_len, keep):
         nonlocal out_pos, n_out
         n_out += int(keep.sum())
-        r = native.render_lines(
-            blk.buf, blk.name_starts, blk.name_lens, blk.seq_starts,
-            blk.qual_starts, blk.name2_starts, blk.name2_lens,
-            new_len, keep.astype(np.uint8), out_fastq=out_fastq,
-            q_offset=q_offset, mask_thr=mask_thr,
-            out=arena, out_off=out_pos if arena is not None else 0,
-        )
+        if kind == "fast":
+            r = native.render_lines(
+                blk.buf, blk.name_starts, blk.name_lens, blk.seq_starts,
+                blk.qual_starts, blk.name2_starts, blk.name2_lens,
+                new_len, keep.astype(np.uint8), out_fastq=out_fastq,
+                q_offset=q_offset, mask_thr=mask_thr,
+                out=arena, out_off=out_pos if arena is not None else 0,
+            )
+        else:
+            blk.lengths = new_len
+            # keep each record's quality representation: a classic chunk
+            # may carry numeric-quality records, re-emitted numerically
+            ascii_q = (blk.qual_ascii
+                       if (blk.is_fastq and blk.qual_ascii is not None)
+                       else True)
+            r = codec.render(
+                blk, out_fastq=out_fastq, ascii_qual=ascii_q,
+                q_offset=q_offset, keep=keep, mask_thr=mask_thr,
+                out=arena, out_off=out_pos if arena is not None else 0,
+            )
         if arena is not None:
             out_pos += r
         else:
@@ -365,25 +399,25 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
     def drain_ready(block: bool):
         nonlocal n_total
         while ready:
-            blk, new_len, keep, fut = ready[0]
+            kind, blk, new_len, keep, fut = ready[0]
             if fut is not None and not block and not fut.done():
                 return
             if fut is not None:
                 fut.result()  # re-raises fixer errors in the consumer
             ready.popleft()
-            _timed("render", render_block, blk, new_len, keep)
+            _timed("render", render_block, kind, blk, new_len, keep)
             n_total += len(blk)
 
     def flush_if_done():
         nonlocal cur
-        while cur is not None and cur[3] == len(cur[0]):
-            blk, new_len, keep, _, frag = cur
+        while cur is not None and cur[4] == len(cur[1]):
+            kind, blk, new_len, keep, _, frag = cur
             fut = None
             if tie and frag.any():
                 engines.fragile_rows += int(frag.sum())
-                fut = fixpool.submit(_fix_fragile, cfg, blk, new_len, keep,
-                                     frag, q_offset)
-            ready.append((blk, new_len, keep, fut))
+                fut = fixpool.submit(_fix_fragile, cfg, kind, blk, new_len,
+                                     keep, frag, q_offset)
+            ready.append((kind, blk, new_len, keep, fut))
             if not next_block():
                 break
         drain_ready(block=False)
@@ -405,13 +439,13 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
             dfrag = fg[:nrows] if tie else None
             pos = 0
             while pos < nrows and cur is not None:
-                room = len(cur[0]) - cur[3]
+                room = len(cur[1]) - cur[4]
                 take = min(room, nrows - pos)
-                cur[1][cur[3]:cur[3] + take] = dlen[pos:pos + take]
-                cur[2][cur[3]:cur[3] + take] = dkeep[pos:pos + take]
+                cur[2][cur[4]:cur[4] + take] = dlen[pos:pos + take]
+                cur[3][cur[4]:cur[4] + take] = dkeep[pos:pos + take]
                 if tie:
-                    cur[4][cur[3]:cur[3] + take] = dfrag[pos:pos + take]
-                cur[3] += take
+                    cur[5][cur[4]:cur[4] + take] = dfrag[pos:pos + take]
+                cur[4] += take
                 pos += take
                 flush_if_done()
             if pos < nrows:
@@ -439,23 +473,29 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
     return n_total, n_out, out_pos
 
 
-def _fix_fragile(cfg, blk, new_len, keep, frag, q_offset):
+def _fix_fragile(cfg, kind, blk, new_len, keep, frag, q_offset):
     """Re-decide tie-fragile rows with the float32 host engine and patch
     the decisions in place."""
     from . import hostfix
 
     idx = np.nonzero(frag)[0]
-    lens = np.ascontiguousarray(blk.seq_lens[idx])
-    lm = max(int(lens.max()), 1)
-    buf = np.frombuffer(blk.buf, np.uint8)
-    b = native.gather_rows(
-        buf, np.ascontiguousarray(blk.seq_starts[idx]), lens, lm
-    )
-    qa = native.gather_rows(
-        buf, np.ascontiguousarray(blk.qual_starts[idx]), lens, lm
-    )
-    # beyond-length cells are unset; every consumer masks by length
-    q = qa.astype(np.int16) - q_offset
-    l_fix, k_fix = hostfix.host_decide(cfg, b, q, lens.astype(np.int32))
+    if kind == "classic":
+        b = np.ascontiguousarray(blk.bases[idx])
+        q = np.ascontiguousarray(blk.quals[idx]).astype(np.int16)
+        ln = np.asarray(blk.lengths)[idx].astype(np.int32)
+    else:
+        lens = np.ascontiguousarray(blk.seq_lens[idx])
+        lm = max(int(lens.max()), 1)
+        buf = np.frombuffer(blk.buf, np.uint8)
+        b = native.gather_rows(
+            buf, np.ascontiguousarray(blk.seq_starts[idx]), lens, lm
+        )
+        qa = native.gather_rows(
+            buf, np.ascontiguousarray(blk.qual_starts[idx]), lens, lm
+        )
+        # beyond-length cells are unset; every consumer masks by length
+        q = qa.astype(np.int16) - q_offset
+        ln = lens.astype(np.int32)
+    l_fix, k_fix = hostfix.host_decide(cfg, b, q, ln)
     new_len[idx] = l_fix
     keep[idx] = k_fix

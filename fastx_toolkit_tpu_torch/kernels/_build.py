@@ -22,7 +22,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("align_packed12.cu", "packed_counts.cu")
+SOURCES = ("align_packed12.cu", "align_packed.cu", "align_unpacked.cu",
+           "packed_counts.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfastx_torch_kernels.so"
@@ -118,6 +119,13 @@ def library() -> ctypes.CDLL:
             lib.fx_align_packed12.argtypes = [vp, vp, vp, ctypes.c_char_p,
                                               ci, ci, ci, ci, vp, vp]
             lib.fx_align_packed12.restype = ci
+            lib.fx_align_packed.argtypes = lib.fx_align_packed12.argtypes
+            lib.fx_align_packed.restype = ci
+            lib.fx_align_unpacked.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
+                                              vp, vp]
+            lib.fx_align_unpacked.restype = ci
+            lib.fx_align_unpacked_smem_ok.argtypes = [ci]
+            lib.fx_align_unpacked_smem_ok.restype = ci
             lib.fx_packed_counts.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
             lib.fx_packed_counts.restype = ci
             _lib = lib

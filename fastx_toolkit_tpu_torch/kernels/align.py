@@ -27,6 +27,9 @@ as the sequential chain the CUDA kernel runs.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 GAP = -50
@@ -223,3 +226,267 @@ def align_batch(bases: torch.Tensor, lengths: torch.Tensor, adapter: bytes,
     if tie_flag:
         out["tie_fragile"] = bfl
     return out
+
+
+# ---------------------------------------------------------------------------
+# debug printers (fastx_clipper -D / -DD), numpy: copies of the reference's
+# float32 oracle and its print_matrix / SequenceAlignmentResults::print
+# ---------------------------------------------------------------------------
+
+FROM_UPPER = 1
+FROM_LEFT = 2
+FROM_UPPER_LEFT = 3
+
+
+@dataclasses.dataclass
+@dataclasses.dataclass
+class AlignResult:
+    query_size: int = 0
+    query_start: int = 0
+    query_end: int = 0
+    target_size: int = 0
+    target_start: int = 0
+    target_end: int = 0
+    gaps: int = 0
+    neutral_matches: int = 0
+    matches: int = 0
+    mismatches: int = 0
+
+
+
+def align_oracle(query: bytes, target: bytes) -> AlignResult:
+    """Transcription of FASTX-Toolkit's HalfLocalSequenceAlignment in
+    float32, like the C (bit-faithful modulo FMA): the oracle behind the
+    ``-D`` debug printers."""
+    W, H = len(query), len(target)
+    gap = np.float32(-5.0)
+    q = np.frombuffer(query, np.uint8)
+    t = np.frombuffer(target, np.uint8)
+
+    target_border = np.where(
+        np.arange(H) <= 3, np.float32(0), gap * (np.arange(H) - 3).astype(np.float32)
+    ).astype(np.float32)
+
+    score = np.zeros((W, H), np.float32)
+    origin = np.zeros((W, H), np.int8)
+
+    def delta(x, y):
+        if q[x] == _N and t[y] == _N:
+            return np.float32(0.0)
+        if q[x] == _N or t[y] == _N:
+            return np.float32(0.1)
+        return np.float32(1.0) if q[x] == t[y] else np.float32(-1.0)
+
+    best = np.float32(-1000000)
+    bx = by = 0
+    for x in range(W):
+        for y in range(H):
+            # safe_score(): query_index==-1 -> target_border[target_index],
+            # target_index==-1 -> query_border[query_index]==0.  At (0,0)
+            # the C reads target_border[-1], an out-of-bounds vector access
+            # that in practice lands on heap metadata ~ 0 (denormal); we
+            # model it as 0.
+            up = (score[x, y - 1] if y > 0 else np.float32(0.0)) + gap
+            left = (score[x - 1, y] if x > 0 else target_border[y]) + gap
+            if x > 0 and y > 0:
+                ul_src = score[x - 1, y - 1]
+            elif x == 0 and y > 0:
+                ul_src = target_border[y - 1]
+            else:
+                ul_src = np.float32(0.0)
+            upleft = ul_src + delta(x, y)
+            if y > 3 and y - 3 > x:
+                left = np.float32(-100000)
+            s = np.float32(-100000000)
+            o = FROM_LEFT
+            if upleft > s:
+                s, o = upleft, FROM_UPPER_LEFT
+            if up > s:
+                s, o = up, FROM_UPPER
+            if left > s:
+                s, o = left, FROM_LEFT
+            score[x, y] = s
+            origin[x, y] = o
+            if s > best:
+                best, bx, by = s, x, y
+
+    # NOTE on borders in the C: safe_score(x-1, y) with x==0 returns
+    # target_border[y]; safe_score(x, y-1) with y==0 returns
+    # query_border[x] == 0; safe_score(x-1, y-1) with either -1 returns the
+    # corresponding border -- for x==0 that's target_border[y-1], for y==0
+    # query_border[x-1] == 0, and for both it's target_border[-1]
+    # (query_border? no: query_index==-1 checked first -> target_border[-1],
+    # an out-of-bounds read of the vector; libstdc++ returns the element
+    # before the data pointer...).  In practice target_border[-1] on x==0,
+    # y==0 reads vector data minus one.  We model safe_score(-1,-1) as
+    # query_border path value 0, which equals target_border[0..3]=0 region
+    # anyway; divergence would need a negative index read to differ from 0.
+    r = AlignResult()
+    r.query_size, r.target_size = W, H
+    r.query_end, r.target_end = bx, by
+    x, y = bx, by
+    while x >= 0 and y >= 0:
+        o = origin[x, y]
+        r.query_start, r.target_start = x, y
+        if o == FROM_LEFT:
+            r.gaps += 1
+            x -= 1
+        elif o == FROM_UPPER:
+            r.gaps += 1
+            y -= 1
+        else:
+            if q[x] == _N or t[y] == _N:
+                r.neutral_matches += 1
+            elif q[x] == t[y]:
+                r.matches += 1
+            else:
+                r.mismatches += 1
+            x -= 1
+            y -= 1
+    return r
+
+
+def align_oracle_full(query: bytes, target: bytes):
+    """Oracle + full matrices and alignment strings, for the debug
+    printers (print_matrix, sequence_alignment.cpp:169-228, and
+    SequenceAlignmentResults::print, :15-86)."""
+    W, H = len(query), len(target)
+    q = np.frombuffer(query, np.uint8)
+    t = np.frombuffer(target, np.uint8)
+    r = align_oracle(query, target)
+    # rebuild matrices (float path)
+    gap = np.float32(-5.0)
+    tb = np.where(np.arange(H) <= 3, np.float32(0),
+                  gap * (np.arange(H) - 3).astype(np.float32)).astype(np.float32)
+    score = np.zeros((W, H), np.float32)
+    origin = np.zeros((W, H), np.int8)
+    match = np.zeros((W, H), np.uint8)
+
+    def delta(x, y):
+        if q[x] == _N and t[y] == _N:
+            return np.float32(0.0)
+        if q[x] == _N or t[y] == _N:
+            return np.float32(0.1)
+        return np.float32(1.0) if q[x] == t[y] else np.float32(-1.0)
+
+    for x in range(W):
+        for y in range(H):
+            match[x, y] = (
+                ord("N") if (q[x] == _N or t[y] == _N)
+                else (ord("M") if q[x] == t[y] else ord("x"))
+            )
+            up = (score[x, y - 1] if y > 0 else np.float32(0.0)) + gap
+            left = (score[x - 1, y] if x > 0 else tb[y]) + gap
+            if x > 0 and y > 0:
+                ul = score[x - 1, y - 1]
+            elif x == 0 and y > 0:
+                ul = tb[y - 1]
+            else:
+                ul = np.float32(0.0)
+            ul = ul + delta(x, y)
+            if y > 3 and y - 3 > x:
+                left = np.float32(-100000)
+            s, o = np.float32(-100000000), FROM_LEFT
+            if ul > s:
+                s, o = ul, FROM_UPPER_LEFT
+            if up > s:
+                s, o = up, FROM_UPPER
+            if left > s:
+                s, o = left, FROM_LEFT
+            score[x, y], origin[x, y] = s, o
+
+    # alignment strings via traceback
+    qa, ta = [], []
+    x, y = r.query_end, r.target_end
+    acc = 0.0
+    while x >= 0 and y >= 0:
+        o = origin[x, y]
+        if o == FROM_LEFT:
+            ta.append("-")
+            qa.append(chr(q[x]))
+            acc += -5.0
+            x -= 1
+        elif o == FROM_UPPER:
+            ta.append(chr(t[y]))
+            qa.append("-")
+            acc += -5.0
+            y -= 1
+        else:
+            ta.append(chr(t[y]))
+            qa.append(chr(q[x]))
+            mv = chr(match[x, y])
+            acc += {"N": 0.1, "M": 1.0, "x": -1.0}[mv]
+            x -= 1
+            y -= 1
+    return r, score, origin, match, tb, "".join(reversed(qa)), "".join(reversed(ta)), acc
+
+
+def format_matrix(query: bytes, target: bytes) -> str:
+    """print_matrix (sequence_alignment.cpp:192-228)."""
+    _, score, origin, match, tb, _, _, _ = align_oracle_full(query, target)
+    W, H = len(query), len(target)
+    out = ["Score-Matrix:\n"]
+    line = "%-2s%-7s" % ("-", "-")
+    for x in range(W):
+        line += "%-9c" % chr(query[x])
+    out.append(line + "\n")
+    line = "%-2s%-7s" % ("-", "-")
+    for x in range(W):
+        line += "%-9s" % "0"  # query_border is all zeros
+    out.append(line + "\n")
+    ochar = {FROM_UPPER: "|", FROM_LEFT: "-", FROM_UPPER_LEFT: "\\", 4: "="}
+    for y in range(H):
+        line = "%-2c%6s " % (chr(target[y]), ("%g" % tb[y]))
+        for x in range(W):
+            line += "%c%c%-7.1f" % (
+                chr(match[x, y]), ochar.get(int(origin[x, y]), "*"), score[x, y]
+            )
+        out.append(line.rstrip() + "\n")
+    return "".join(out)
+
+
+def format_results(query: bytes, target: bytes) -> str:
+    """SequenceAlignmentResults::print (sequence_alignment.cpp:15-86)."""
+    r, _, _, _, _, qa, ta, acc = align_oracle_full(query, target)
+    out = []
+    out.append("Query-Alingment = %s\n" % qa)
+    out.append("target-Alingment= %s\n" % ta)
+    out.append("Alignment NOT found\n")  # alignment_found is never set
+    out.append(
+        "Score = %g (%d matches, %d neutral-matches, %d mismatches, %d gaps) \n"
+        % (acc, r.matches, r.neutral_matches, r.mismatches, r.gaps)
+    )
+    out.append(
+        "Query = %s(qsize %d qstart %d qend %d\n"
+        % (query.decode(), r.query_size, r.query_start, r.query_end)
+    )
+    out.append(
+        "Target= %s(tsize %d tstart %d tend %d\n"
+        % (target.decode(), r.target_size, r.target_start, r.target_end)
+    )
+    out.append("\n")
+    delta = max(r.target_start, r.query_start)
+    line = ""
+    if delta - r.query_start > 0:
+        line += " " * (delta - r.query_start - 1)
+    if r.query_start > 0:
+        line += query.decode()[: r.query_start - 1]
+    line += "(%s)" % qa
+    if r.query_end < len(query):
+        line += query.decode()[r.query_end + 1 :]
+    out.append(line + "\n")
+    line = " " * (delta - 1) if delta > 0 else ""
+    line += "(" + "".join(
+        "*" if a == b else "|" for a, b in zip(qa, ta)
+    ) + ")"
+    out.append(line + "\n")
+    line = ""
+    if delta - r.target_start > 0:
+        line += " " * (delta - r.target_start)
+    if r.target_start > 0:
+        line += target.decode()[: r.target_start - 1]
+    line += "(%s)" % ta
+    if r.target_end < len(target):
+        line += target.decode()[r.target_end + 1 :]
+    out.append(line + "\n")
+    return "".join(out)

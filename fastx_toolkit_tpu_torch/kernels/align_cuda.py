@@ -1,13 +1,20 @@
-"""K1: the adapter DP read straight from the 2-bit packed upload.
+"""K1 and K3: the adapter DP read straight from the 2-bit packed upload.
 
 Counterpart of ``fastx_toolkit_tpu/kernels/align_pallas.py``
-(``packed12_ok``, ``adapter_codes``, ``align_batch_pallas_packed`` with
-the P12 kernel).  :func:`align_batch_packed` launches the hand-written
-CUDA kernel ``csrc/align_packed12.cu`` for CUDA tensors; for CPU tensors
-it runs :func:`align_batch_packed_plain`, which unpacks the words to
-ASCII (N wherever the N plane bit is set) and calls the plain torch DP
-(:func:`.align.align_batch`).  There is no fallback: a CUDA tensor
-launches the kernel or raises.
+(``packed12_ok``, ``pallas_bounds_ok``, ``adapter_codes``,
+``align_batch_pallas_packed``).  :func:`align_batch_packed` launches one
+of two hand-written CUDA kernels for CUDA tensors:
+
+* K1, ``csrc/align_packed12.cu``, inside :func:`packed12_ok` (adapters
+  of 1-31 bases, reads of at most 511 columns);
+* K3, ``csrc/align_packed.cu``, outside it and inside
+  :func:`packed_wide_ok` (adapters of up to 72 bases, reads up to the
+  reference's packed-field bound).
+
+For CPU tensors it runs :func:`align_batch_packed_plain`, which unpacks
+the words to ASCII (N wherever the N plane bit is set) and calls the
+plain torch DP (:func:`.align.align_batch`).  There is no fallback: a
+CUDA tensor launches a kernel or raises.
 
 Operand layout (the engine's, ``engine/pipeline.py::_words_T``):
 ``b2w`` ``[ceil(L/32)*2, B]`` int32 — 16 two-bit codes per word (A0 C1 G2
@@ -27,16 +34,40 @@ from .align import FIELDS, align_batch
 _CODE_OF = {65: 0, 67: 1, 71: 2, 84: 3, 78: 4}  # A C G T N
 _ASCII = torch.tensor(list(b"ACGT"), dtype=torch.uint8)
 
-# kernel launches by align_batch_packed (reset it to 0 to count a run)
+# kernel launches by align_batch_packed (reset them to 0 to count a run):
+# K1 (csrc/align_packed12.cu) and K3 (csrc/align_packed.cu)
 launches = 0
+wide_launches = 0
+
+
+def _h_pad(H: int) -> int:
+    return max(8, -(-H // 8) * 8)
 
 
 def packed12_ok(L: int, H: int) -> bool:
     """K1's gate: adapters of 1-31 bases (the kernel keeps the state of
     32 adapter rows in registers) and reads of at most 511 columns (the
-    reference P12 kernel's bound; longer adapters or reads take K3 or K4
-    there, a later port slice here)."""
+    reference P12 kernel's bound)."""
     return 1 <= H <= 31 and L <= 511
+
+
+def pallas_bounds_ok(L: int, H: int) -> bool:
+    """The reference's packed path-statistic field bounds: counters fit 8
+    bits (H <= 255) and the gap field fits 15 bits (L + H + H_pad <
+    2^15)."""
+    return H <= 255 and L + H + _h_pad(H) < (1 << 15)
+
+
+def packed_wide_ok(L: int, H: int) -> bool:
+    """K3's gate, the reference's two-plane packed kernel's: adapters
+    with H_pad <= 72 (``packed_tile_for``) inside the field bounds."""
+    return 1 <= H and _h_pad(H) <= 72 and pallas_bounds_ok(L, H)
+
+
+def packed_ok(L: int, H: int) -> bool:
+    """True iff K1 or K3 takes an ACGTN adapter of ``H`` bases against
+    reads of ``L`` columns."""
+    return packed12_ok(L, H) or packed_wide_ok(L, H)
 
 
 def adapter_codes(adapter: bytes):
@@ -99,16 +130,21 @@ def align_batch_packed_plain(b2w, nmw, lengths, adapter: bytes, L: int,
 
 
 def _launch(b2w, nmw, lengths, codes, L: int, tie_flag: bool):
-    global launches
+    global launches, wide_launches
     lib = _build.library()
     B = b2w.shape[1]
     out = torch.empty((9, B), dtype=torch.int32, device=b2w.device)
     stream = torch.cuda.current_stream(b2w.device).cuda_stream
-    launches += 1
-    _build.check(lib.fx_align_packed12(
+    if packed12_ok(L, len(codes)):
+        fn, name = lib.fx_align_packed12, "fx_align_packed12"
+        launches += 1
+    else:
+        fn, name = lib.fx_align_packed, "fx_align_packed"
+        wide_launches += 1
+    _build.check(fn(
         b2w.data_ptr(), None if nmw is None else nmw.data_ptr(),
         lengths.data_ptr(), bytes(codes), len(codes), L, B,
-        1 if tie_flag else 0, out.data_ptr(), stream), "fx_align_packed12")
+        1 if tie_flag else 0, out.data_ptr(), stream), name)
     res = dict(zip(FIELDS, out[:8]))
     if tie_flag:
         res["tie_fragile"] = out[8].bool()
@@ -127,11 +163,11 @@ def align_batch_packed(b2w, nmw, lengths, adapter: bytes, L: int,
     (``align_pallas.py:908-918``)."""
     codes = adapter_codes(adapter)
     if codes is None:
-        raise ValueError("adapter outside ACGTN: the unpacked DP (K4) is a "
-                         "later port slice")
-    if not packed12_ok(L, len(adapter)):
-        raise ValueError("packed DP bounds exceeded (L=%d, adapter=%d); K3 "
-                         "is a later port slice" % (L, len(adapter)))
+        raise ValueError("adapter outside ACGTN: the packed DP cannot "
+                         "represent it (the unpacked DP, K4, takes it)")
+    if not packed_ok(L, len(adapter)):
+        raise ValueError("packed DP bounds exceeded (L=%d, adapter=%d): "
+                         "the unpacked DP, K4, takes it" % (L, len(adapter)))
     check_operands(b2w, nmw, lengths, L)
     zero_flags = tie_flag and nmw is None and all(c < 4 for c in codes)
     run_flags = tie_flag and not zero_flags

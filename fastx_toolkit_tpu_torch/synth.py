@@ -1,0 +1,82 @@
+"""Seeded synthetic FASTQ lanes for smoke runs and tests.
+
+:func:`synth_lane_bytes` is the generator of the repository's C-baseline
+lane (``bench.synth_lane_bytes``), rebuilt on the port's own ``records``
+and ``codec``: with the default adapter it gives the same bytes.
+:func:`synth_small_rna_lane_bytes` is a small-RNA lane for the standalone
+clipper (``fastx_clipper -a TGGAATTCTCGGGTGCCAAGG -l 15 -c``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core import codec
+from .core.records import ReadBatch, StringColumn
+
+HEADLINE_ADAPTER = b"CTGTAGGCACCATCAAT"
+SMALL_RNA_ADAPTER = b"TGGAATTCTCGGGTGCCAAGG"
+
+
+def _render(bases, quals, lengths) -> bytes:
+    n = len(lengths)
+    batch = ReadBatch(
+        bases=bases.astype(np.uint8),
+        quals=quals.astype(np.int8),
+        lengths=lengths.astype(np.int32),
+        counts=np.ones(n, np.int32),
+        names=StringColumn.from_list([b"r%d" % i for i in range(n)]),
+        names2=StringColumn.from_list([b""] * n),
+        is_fastq=True,
+        qual_ascii=np.ones(n, bool),
+    )
+    return codec.render(batch, out_fastq=True, ascii_qual=True, q_offset=33)
+
+
+def synth_lane_bytes(n, read_len, seed=42, adapter=HEADLINE_ADAPTER) -> bytes:
+    """``n`` FASTQ reads of ``read_len`` random ACGT bases, 30 % of them
+    with ``adapter`` spiked in from a position in ``[30, read_len - 5)``,
+    qualities falling along the read (Phred+33)."""
+    rng = np.random.default_rng(seed)
+    bases = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(n, read_len))
+    has_ad = rng.random(n) < 0.3
+    pos = rng.integers(30, read_len - 5, n)
+    for j, ch in enumerate(adapter):
+        m = has_ad & (pos + j < read_len)
+        bases[m, (pos + j)[m]] = ch
+    cols = np.arange(read_len)
+    quals = np.clip(rng.normal(36, 4, (n, read_len))
+                    - (cols[None, :] / read_len) * 12, 2, 40)
+    qual_ascii = (quals + 33).astype(np.uint8)
+    return _render(bases, qual_ascii.astype(np.int16) - 33,
+                   np.full(n, read_len, np.int32))
+
+
+def synth_small_rna_lane_bytes(n, read_len=50, adapter=SMALL_RNA_ADAPTER,
+                               seed=7) -> bytes:
+    """A small-RNA lane: each read is an insert of 15-35 random bases,
+    then ``adapter`` with a base miscalled at 2 % per position, then a
+    random tail, cut to ``read_len``.  About 2 % of the reads are
+    adapter-only (insert 0), 5 % carry Ns, 10 % are trimmed to a random
+    length in ``[10, read_len]``; qualities are Phred+33 around 32."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    bases = rng.choice(acgt, size=(n, read_len))
+    ins = rng.integers(15, 36, n)
+    ins[rng.random(n) < 0.02] = 0
+    ad = np.frombuffer(adapter, np.uint8)
+    for j, ch in enumerate(ad):
+        col = ins + j
+        m = col < read_len
+        rows = np.nonzero(m)[0]
+        miscall = rng.random(len(rows)) < 0.02
+        bases[rows, col[m]] = np.where(miscall,
+                                       rng.choice(acgt, len(rows)), ch)
+    n_rows = rng.random(n) < 0.05
+    n_mask = n_rows[:, None] & (rng.random((n, read_len)) < 0.04)
+    bases[n_mask] = ord("N")
+    lengths = np.full(n, read_len, np.int32)
+    short = rng.random(n) < 0.10
+    lengths[short] = rng.integers(10, read_len + 1, int(short.sum()))
+    quals = np.clip(rng.normal(32, 6, (n, read_len)), 2, 40).astype(np.int16)
+    return _render(bases, quals, lengths)

@@ -183,12 +183,15 @@ def test_align_batch_packed_matches_reference_p12(adapter, L, n_frac, B,
 
 
 def test_align_batch_packed_rejects_what_k1_cannot_take():
+    """What neither packed kernel (K1, K3) takes raises: an adapter
+    outside ACGTN, one over K3's 72 bases, words that do not cover L,
+    lengths of the wrong type."""
     b2w = torch.zeros((8, 4), dtype=torch.int32)
     lengths = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="outside ACGTN"):
         align_batch_packed(b2w, None, lengths, b"ACGU", L=100)
     with pytest.raises(ValueError, match="bounds"):
-        align_batch_packed(b2w, None, lengths, b"A" * 32, L=100)
+        align_batch_packed(b2w, None, lengths, b"A" * 73, L=100)
     with pytest.raises(ValueError, match="cover"):
         align_batch_packed(b2w, None, lengths, b"ACGT", L=200)
     with pytest.raises(ValueError, match="lengths"):

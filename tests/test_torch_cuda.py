@@ -27,13 +27,20 @@ from fastx_toolkit_tpu_torch.engine.pipeline import (
     _words_T,
     packed_decisions_pipeline,
 )
-from fastx_toolkit_tpu_torch.kernels import align_cuda, counts_cuda
+from fastx_toolkit_tpu_torch.kernels import (
+    align_cuda,
+    align_unpacked_cuda,
+    counts_cuda,
+)
+from fastx_toolkit_tpu_torch.kernels.align import align_batch
 
 pytestmark = pytest.mark.cuda
 
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
 ADAPTER = b"CTGTAGGCACCATCAAT"
+TRUSEQ = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+SMALL_RNA = b"TGGAATTCTCGGGTGCCAAGG"
 ALPHA = np.frombuffer(b"ACGTN", np.uint8)
 
 
@@ -87,6 +94,68 @@ def test_k1_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
                                                L=L, tie_flag=tie)
     for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
         assert got[k].device == dev
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
+                                   rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("adapter,L,n_frac,B,with_nm,tie", [
+    (TRUSEQ, 150, 0.03, 4096, True, True),           # 33-base TruSeq
+    (TRUSEQ, 150, 0.03, 1000, True, False),          # ragged B, flag-free
+    (TRUSEQ, 150, 0.0, 1000, False, True),           # nmw=None shortcut
+    (b"ACGTN" * 14 + b"AC", 600, 0.05, 512, True, True),  # H=72, L=600
+    (ADAPTER, 600, 0.03, 300, True, True),           # L > 511 with H=17
+    (TRUSEQ, 150, 0.05, 1, True, True),              # B=1
+])
+def test_k3_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
+    b2w, nmw, lengths = _operands(L + B + 1, B, L, n_frac, adapter, dev)
+    if not with_nm:
+        nmw = None
+    before = (align_cuda.launches, align_cuda.wide_launches)
+    got = align_cuda.align_batch_packed(b2w, nmw, lengths, adapter, L=L,
+                                        tie_flag=tie)
+    assert (align_cuda.launches, align_cuda.wide_launches) == \
+        (before[0], before[1] + 1)
+    want = align_cuda.align_batch_packed_plain(b2w, nmw, lengths, adapter,
+                                               L=L, tie_flag=tie)
+    for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
+                                   rtol=0, atol=0, msg=k)
+
+
+def _ascii_reads(seed, B, L, adapter, alphabet=b"ACGTN"):
+    """ASCII reads over ``alphabet`` with noisy copies of ``adapter``
+    spiked in and random lengths 0..L: ``(bases, lengths)`` numpy."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, np.uint8)
+    bases = rng.choice(alpha, size=(B, L))
+    pos = rng.integers(0, max(1, L - len(adapter)), B)
+    ad = np.frombuffer(adapter, np.uint8)
+    for j in range(len(ad)):
+        m = (rng.random(B) < 0.4) & (pos + j < L)
+        col = np.where(rng.random(B) < 0.9, ad[j], rng.choice(alpha, B))
+        bases[m, (pos + j)[m]] = col[m]
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    return bases, lengths
+
+
+@pytest.mark.parametrize("adapter,L,B,alphabet", [
+    (SMALL_RNA, 50, 4096, b"ACGTN"),                 # small-RNA shape
+    (b"tggaattcUcgggtgccaagg" * 4 + b"ACGNNUuuuACGTNa", 300, 512,
+     b"ACGTNacgtnUu"),                               # H=99, device scratch
+    (b"CCTTAAGG", 64, 300, b"ACGTNacgU"),            # B=300
+    (SMALL_RNA, 50, 1, b"ACGTN"),                    # B=1
+])
+@pytest.mark.parametrize("tie", [True, False])
+def test_k4_matches_plain_on_card(dev, adapter, L, B, alphabet, tie):
+    bases, lengths = _ascii_reads(B + L, B, L, adapter, alphabet)
+    bt = torch.from_numpy(bases).to(dev)
+    lt = torch.from_numpy(lengths).to(dev)
+    before = align_unpacked_cuda.launches
+    got = align_unpacked_cuda.align_batch_unpacked(bt, lt, adapter,
+                                                   tie_flag=tie)
+    assert align_unpacked_cuda.launches == before + 1
+    want = align_batch(bt, lt, adapter, tie_flag=tie)
+    for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
         torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
                                    rtol=0, atol=0, msg=k)
 
@@ -187,3 +256,71 @@ def test_stream_on_card_matches_cpu(dev):
     assert got == want
     assert want[0][0] == 6000 and want[2] > 0
     assert min(launched) >= 6  # every dispatch went through both kernels
+
+
+def _cli_run(tool, argv, data, device, monkeypatch):
+    from fastx_toolkit_tpu_torch.cli.common import CliContext
+
+    monkeypatch.setenv("FASTX_TORCH_DEVICE", device)
+    out, err = io.BytesIO(), io.StringIO()
+    ctx = CliContext(prog="t", stdin=io.BytesIO(data), stdout=out,
+                     stderr=err, stdout_text=io.StringIO())
+    status = tool.tool_main(ctx, argv)
+    return status, out.getvalue(), err.getvalue()
+
+
+def test_clipper_cli_on_card_matches_cpu(dev, monkeypatch):
+    """The standalone clipper (K4, legacy carry across small batches)."""
+    from fastx_toolkit_tpu_torch.cli.tools import fastx_clipper
+    from fastx_toolkit_tpu_torch.synth import synth_small_rna_lane_bytes
+
+    monkeypatch.setenv("FASTX_TPU_BLOCK_BYTES", "65536")
+    data = synth_small_rna_lane_bytes(5000, 50, seed=13)
+    argv = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
+    before = align_unpacked_cuda.launches
+    got = _cli_run(fastx_clipper, argv, data, "cuda", monkeypatch)
+    launched = align_unpacked_cuda.launches - before
+    want = _cli_run(fastx_clipper, argv, data, "cpu", monkeypatch)
+    assert got == want and want[0] == 0
+    assert launched >= 5  # one per batch of the 5000 reads
+
+
+@pytest.mark.parametrize("argv", [
+    ["-v", "-Q", "33", "fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
+     "fastq_quality_trimmer -t 20 | fastq_masker -q 20 | "
+     "fastx_clipper -a CTGTAGGCACCATCAAT -l 5 -n | fastx_artifacts_filter"],
+    ["-Q", "33", "fastx_reverse_complement | fastx_clipper -a "
+     + SMALL_RNA.decode() + " -c -d 2 | fastq_to_fasta -r"],
+])
+def test_pipeline_classic_loop_on_card_matches_cpu(dev, argv, monkeypatch):
+    from fastx_toolkit_tpu_torch.cli.tools import fastx_pipeline
+
+    data = _lane(3000, seed=14)
+    before = align_unpacked_cuda.launches
+    got = _cli_run(fastx_pipeline, argv, data, "cuda", monkeypatch)
+    launched = align_unpacked_cuda.launches - before
+    want = _cli_run(fastx_pipeline, argv, data, "cpu", monkeypatch)
+    assert got == want and want[0] == 0
+    assert launched >= 1
+
+
+def test_stream_truseq_on_card_matches_cpu(dev):
+    """The line engine with the 33-base adapter: K3 and K2, never K1."""
+    cfg = PipelineConfig(adapter=TRUSEQ)
+    data = _lane(4000, seed=15).replace(ADAPTER, TRUSEQ[:len(ADAPTER)])
+    outs = []
+    for device in (dev, "cpu"):
+        args = SimpleNamespace(input_filename="<test>", q_offset=33)
+        reader = BatchReader(None, args, filetype=codec.FASTQ_ONLY,
+                             block_bytes=65536, stream=io.BytesIO(data))
+        before = (align_cuda.launches, align_cuda.wide_launches)
+        w = []
+        counts = lines.stream_pipeline_lines(
+            reader, cfg, out_fastq=True, q_offset=33, write=w.append,
+            device=device, chunk_rows=1000,
+            engines=lines.LineEngines(cfg, device))
+        outs.append((counts, b"".join(w)))
+        if device == dev:
+            assert align_cuda.launches == before[0]
+            assert align_cuda.wide_launches - before[1] >= 4
+    assert outs[0] == outs[1]

@@ -1,7 +1,9 @@
-"""The PyTorch port imports and runs without jax, CPU tensors take the
-plain path, and a missing CUDA device is an error, never a quiet CPU
-fallback."""
+"""The PyTorch port imports and runs without jax and without anything of
+the JAX package or the repository's ``bench`` module (a run with them
+blocked, and a scan of the sources), CPU tensors take the plain path,
+and a missing CUDA device is an error, never a quiet CPU fallback."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -11,7 +13,11 @@ import pytest
 import torch
 
 from fastx_toolkit_tpu_torch.device import resolve_device
-from fastx_toolkit_tpu_torch.kernels import align_cuda, counts_cuda
+from fastx_toolkit_tpu_torch.kernels import (
+    align_cuda,
+    align_unpacked_cuda,
+    counts_cuda,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,17 +63,84 @@ def test_port_cli_runs_with_jax_unimportable():
     assert r.stdout.startswith(b"@r")
 
 
+def test_port_runs_with_the_jax_package_and_bench_blocked():
+    """Both CLIs and chip_smoke's helpers, with jax, the JAX package and
+    bench made unimportable: nothing of them is loaded."""
+    r = _run_py(
+        "import io, sys\n"
+        "for m in ('jax', 'fastx_toolkit_tpu', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        "import chip_smoke\n"
+        "from fastx_toolkit_tpu_torch import synth\n"
+        "from fastx_toolkit_tpu_torch.cli.common import CliContext\n"
+        "from fastx_toolkit_tpu_torch.cli.tools import fastx_clipper, "
+        "fastx_pipeline\n"
+        "data = synth.synth_small_rna_lane_bytes(60, 50, seed=1)\n"
+        "for tool, argv in (\n"
+        "        (fastx_clipper, ['-Q', '33', '-a', 'TGGAATTCTCGG', '-v']),\n"
+        "        (fastx_pipeline, ['-Q', '33', 'fastq_masker -q 20 | "
+        "fastx_clipper -a TGGAATTCTCGG -n']),\n"
+        "        (fastx_pipeline, ['-v', '-Q', '33', 'fastx_clipper -a "
+        "TGGAATTCTCGGGTGCCAAGGAGATCGGAAGAGC'])):\n"
+        "    out, err = io.BytesIO(), io.StringIO()\n"
+        "    ctx = CliContext(prog='t', stdin=io.BytesIO(data), stdout=out,\n"
+        "                     stderr=err, stdout_text=io.StringIO())\n"
+        "    assert tool.tool_main(ctx, argv) == 0, err.getvalue()\n"
+        "    assert out.getvalue().startswith(b'@r'), argv\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and (\n"
+        "    m in ('jax', 'bench') or m.split('.')[0] == 'fastx_toolkit_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout.strip() == b"ok"
+
+
+def _forbidden_imports(path):
+    """Absolute imports of jax, the JAX package or bench in ``path``."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "fastx_toolkit_tpu", "bench")]
+    return bad
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, files in os.walk(os.path.join(ROOT,
+                                                "fastx_toolkit_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    found = {p: _forbidden_imports(p) for p in paths}
+    assert not {p: b for p, b in found.items() if b}
+
+
 def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
-    before = (align_cuda.launches, counts_cuda.launches)
+    before = (align_cuda.launches, align_cuda.wide_launches,
+              counts_cuda.launches, align_unpacked_cuda.launches)
     b2w = torch.zeros((8, 4), dtype=torch.int32)
     nmw = torch.zeros((4, 4), dtype=torch.int32)
     lengths = torch.full((4,), 100, dtype=torch.int32)
     res = align_cuda.align_batch_packed(b2w, nmw, lengths, b"CTGTAGGCA", L=100,
                                         tie_flag=True)
+    wide = align_cuda.align_batch_packed(b2w, nmw, lengths, b"CTGTA" * 8,
+                                         L=100, tie_flag=True)
     worst, ncnt = counts_cuda.packed_counts(b2w, nmw, lengths)
+    unpacked = align_unpacked_cuda.align_batch_unpacked(
+        torch.full((4, 100), 65, dtype=torch.uint8), lengths, b"acgU",
+        tie_flag=True)
     assert set(res) >= {"matches", "gaps", "tie_fragile"}
+    assert set(wide) == set(unpacked) == set(res)
     assert worst.tolist() == [100] * 4 and ncnt.tolist() == [0] * 4
-    assert (align_cuda.launches, counts_cuda.launches) == before
+    assert (align_cuda.launches, align_cuda.wide_launches,
+            counts_cuda.launches, align_unpacked_cuda.launches) == before
 
 
 def test_resolve_device(monkeypatch):

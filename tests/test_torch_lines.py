@@ -1,14 +1,16 @@
 """The port's streaming line engine and CLI against the JAX package's:
 identical output bytes on a seeded lane whose dispatches spill across
 render blocks, switch from N-free to N-bearing layout mid-stream and carry
-tie_fragile reads (re-decided on the host); the classic-path inputs the
-port does not take yet raise NotImplementedError, and a malformed chunk
-raises the reference's exact error."""
+tie_fragile reads (re-decided on the host); chunks and chains of the
+classic path (numeric qualities, ``-v``, unmapped chains, wide or
+non-ACGTN adapters, long reads, FASTA) give the reference's bytes, and a
+malformed chunk raises the reference's exact error."""
 
 import io
 import os
 import subprocess
 import sys
+import tempfile
 from types import SimpleNamespace
 
 import numpy as np
@@ -19,8 +21,10 @@ from fastx_toolkit_tpu.core import codec, native
 from fastx_toolkit_tpu.core.errors import FastxError
 from fastx_toolkit_tpu.engine import lines as ref_lines
 from fastx_toolkit_tpu_torch.cli.tools._shared import BatchReader
+from fastx_toolkit_tpu_torch.core.errors import FastxError as PortFastxError
 from fastx_toolkit_tpu_torch.engine import lines as port_lines
 from fastx_toolkit_tpu_torch.engine.pipeline import config_from_reference
+from test_torch_clipper_cli import run_cli_in_process
 
 pytestmark = pytest.mark.skipif(native.LIB is None,
                                 reason="native codec unavailable")
@@ -97,11 +101,15 @@ def test_stream_matches_reference_with_spills_and_fixes():
 
 
 def _cli(argv, data, env_extra):
-    env = dict(os.environ, PYTHONPATH=ROOT, FASTX_TPU_CHUNK="2048",
-               **env_extra)
-    return subprocess.run([sys.executable, *argv], input=data,
-                          capture_output=True, env=env, cwd=ROOT,
-                          timeout=600)
+    # a fresh jax compile cache per run: entries another process wrote
+    # make XLA log to stderr when they are loaded, which is not the tool's
+    # output
+    with tempfile.TemporaryDirectory() as cache:
+        env = dict(os.environ, PYTHONPATH=ROOT, FASTX_TPU_CHUNK="2048",
+                   JAX_COMPILATION_CACHE_DIR=cache, **env_extra)
+        return subprocess.run([sys.executable, *argv], input=data,
+                              capture_output=True, env=env, cwd=ROOT,
+                              timeout=600)
 
 
 def test_cli_matches_reference_cli():
@@ -117,10 +125,18 @@ def test_cli_matches_reference_cli():
 
 
 def test_numeric_quality_chunk_is_not_implemented():
-    cfg = port_lines.PipelineConfig()
+    """A chunk with numeric qualities takes the classic path, in read
+    order between the fast spans: output equal to the reference's."""
+    from fastx_toolkit_tpu.engine.pipeline import PipelineConfig
+
+    ref_cfg = PipelineConfig()
     data = _lane(60, seed=23, numeric_at={30})
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        _port_run(data, cfg, chunk_rows=16)
+    ref = _ref_run(data, ref_cfg, chunk_rows=16)
+    got = _port_run(data, config_from_reference(ref_cfg), chunk_rows=16,
+                    block_bytes=2048)
+    assert got == ref and ref[0] == 60
+    # the numeric record keeps its representation
+    assert any(b" " in q for q in ref[2].split(b"\n")[3::4])
 
 
 def test_malformed_chunk_raises_reference_error():
@@ -130,7 +146,7 @@ def test_malformed_chunk_raises_reference_error():
     bad = data.replace(b"\n@r17\n", b"\nr17\n", 1)  # header without '@'
     with pytest.raises(FastxError) as ref_err:
         _ref_run(bad, PipelineConfig(), chunk_rows=64)
-    with pytest.raises(FastxError) as port_err:
+    with pytest.raises(PortFastxError) as port_err:
         _port_run(bad, port_lines.PipelineConfig(), chunk_rows=64)
     assert str(port_err.value) == str(ref_err.value)
     ref = _cli([os.path.join(ROOT, "bin", "fastx_pipeline"), "-Q", "33",
@@ -151,17 +167,23 @@ def test_malformed_chunk_raises_reference_error():
      + b"I" * 520 + b"\n"),                                 # read > 511 bp
     (["fastx_clipper -a CTGTAGGCA"], b">a\nACGTACGT\n"),    # FASTA input
 ])
-def test_cli_refuses_later_slices(argv, data, monkeypatch):
-    """Chains and inputs of later port slices stop with a clear
-    NotImplementedError instead of taking any plain path."""
-    from fastx_toolkit_tpu_torch.cli.common import CliContext
-    from fastx_toolkit_tpu_torch.cli.tools import fastx_pipeline
-
-    monkeypatch.setenv("FASTX_TORCH_DEVICE", "cpu")
+def test_cli_refuses_later_slices(argv, data, tmp_path, monkeypatch):
+    """Chains and inputs beyond the headline line engine (``-v``, chains
+    out of the canonical order, adapters over 31 bases or outside ACGTN,
+    reads over 511 bp, FASTA input) give the reference CLI's stdout,
+    stderr and status, both run in process.  The reference runs its
+    classic per-batch loop (FASTX_TPU_NO_LINEPATH=1), which its own tests
+    hold byte-identical to its line engine and which compiles far faster
+    on the CPU for long reads."""
     if data is None:
         data = _lane(20, seed=25)
-    ctx = CliContext(prog="fastx_pipeline", stdin=io.BytesIO(data),
-                     stdout=io.BytesIO(), stderr=io.StringIO(),
-                     stdout_text=io.StringIO())
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        fastx_pipeline.tool_main(ctx, ["-Q", "33", *argv])
+    argv = ["-Q", "33", *argv]
+    monkeypatch.setenv("FASTX_TPU_NO_LINEPATH", "1")
+    ref = run_cli_in_process("fastx_toolkit_tpu", "fastx_pipeline", argv,
+                             data, tmp_path)
+    monkeypatch.delenv("FASTX_TPU_NO_LINEPATH")
+    monkeypatch.setenv("FASTX_TORCH_DEVICE", "cpu")
+    got = run_cli_in_process("fastx_toolkit_tpu_torch", "fastx_pipeline",
+                             argv, data, tmp_path)
+    assert got == ref
+    assert ref["rc"] == 0 and ref["stdout"]

@@ -112,19 +112,34 @@ def test_fast_body_respects_trim_boundaries(monkeypatch):
 
 
 def test_outside_the_gate_raises():
+    """Chunks outside K1's gate decide as the reference does: a 32-base
+    adapter (the wide packed DP, K3's route), an adapter outside ACGTN
+    (the unpacking body, K4's route) and reads of up to 600 bp (K3's
+    route); the stats reduction still raises (the K5 slice)."""
+    for adapter, L in ((b"ACGT" * 8, 72), (b"CTGTAGGCACCATCAAU", 72),
+                       (ADAPTER, 600)):
+        cfg = RefConfig(adapter=adapter)
+        rng = np.random.default_rng(L + len(adapter))
+        bases, quals, lengths = _chunk(rng, 24, L, True, adapter=adapter)
+        lengths[0] = L
+        b2, planes = pack_batch2(bases, quals, cfg, n_plane=True)
+        ref = ref_pipeline.packed_pipeline_body(
+            b2, planes, lengths, None, cfg, seq_len=L, two_bit=True,
+            has_n_plane=True, tie_flag=True)
+        rl, rk, _count, rf = (np.asarray(x) for x in ref)
+        gl, gk, gf = port_pipeline.packed_decisions_pipeline(
+            port_pipeline.config_from_reference(cfg), b2, planes, lengths,
+            has_n_plane=True, device="cpu", tie_flag=True, seq_len=L)
+        np.testing.assert_array_equal(gl.numpy(), rl, err_msg="l")
+        np.testing.assert_array_equal(gk.numpy(), rk, err_msg="keep")
+        np.testing.assert_array_equal(gf.numpy(), rf, err_msg="fragile")
     b2 = np.zeros((4, 26), np.uint8)
     planes = np.zeros((4, 3, 13), np.uint8)
     lengths = np.full(4, 100, np.int16)
-    for cfg in (port_pipeline.PipelineConfig(adapter=b"A" * 32),
-                port_pipeline.PipelineConfig(adapter=b"ACGU"),
-                port_pipeline.PipelineConfig(with_stats=True)):
-        with pytest.raises(NotImplementedError, match="later port slice"):
-            port_pipeline.packed_decisions_pipeline(
-                cfg, b2, planes, lengths, has_n_plane=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="over 511"):
+    with pytest.raises(NotImplementedError, match="K5"):
         port_pipeline.packed_decisions_pipeline(
-            port_pipeline.PipelineConfig(), b2, planes, lengths,
-            has_n_plane=False, device="cpu", seq_len=600)
+            port_pipeline.PipelineConfig(with_stats=True), b2, planes,
+            lengths, has_n_plane=False, device="cpu")
     # without the clipper the DP's read-length bound does not apply
     l, keep, _ = port_pipeline.packed_decisions_pipeline(
         port_pipeline.PipelineConfig(with_clip=False, with_artifacts=False),
