@@ -22,10 +22,14 @@ of the JAX package:
    TruSeq adapter, on its no-N-plane shortcut and at H=72, L=600; K4
    (unpacked DP) on the first 262,144 reads of the 1M x 50 bp small-RNA
    lane, on its legacy-effective bases, at H=99 with lowercase and U
-   bytes (L=300), and at B=1 and B=300; in phase 4, K4 again on the
-   inputs of every launch that paths (a) and (c) made (kept as device
-   copies during the run), so it is held against its plain version at
-   each shape a path gives it;
+   bytes (L=300), and at B=1 and B=300; K5 (quality-stats histogram) on
+   the first 262,144 reads of the headline lane (L=128) and of the TruSeq
+   lane (L=160), on a batch of one quality value, on bytes outside ACGTN
+   with qualities below -15 and above 93, at B=1, B=300 and L=301; K5b
+   (its 2-bit mode) on the headline reads; in phase 4, K4 again on the
+   inputs of every launch that paths (a) and (c) made, and K5 on those
+   of path (d) (kept as device copies during the run), so each is held
+   against its plain version at each shape a path gives it;
 4. paths   — at full width, each run with the kernels' launch counters
    set to 0 just before, each output held byte for byte against a host
    reference that never touches a kernel (numpy and the native float32
@@ -40,9 +44,15 @@ of the JAX package:
    (c)   ``fastx_pipeline -v -Q 33`` on the headline chain and lane: the
          classic per-batch loop (K4), its ``-v`` report held against
          per-stage counts from the host replay;
+   (d)   ``fastx_quality_stats -Q 33`` and ``-Q 33 -N`` on the headline
+         and the TruSeq lanes with the ``device`` engine (the default on
+         a card: K5), each held against a run with
+         ``FASTX_STATS_PATH=host`` (the native histogram; no kernel);
 5. times   — end-to-end reads/s of the headline (median of 3 runs after a
-   warm-up) and of paths (a)-(c) (one timed run each), and the device
-   time of K1-K4 beside their plain versions (CUDA events);
+   warm-up) and of paths (a)-(d) (one timed run each; (d) on both
+   engines), and the device time of K1-K5b beside their plain versions
+   and, for K5/K5b, ``torch.bincount`` on precomputed flat ids (CUDA
+   events);
 6. prints the kernels' JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -64,7 +74,11 @@ import torch
 
 from fastx_toolkit_tpu_torch import synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
-from fastx_toolkit_tpu_torch.cli.tools import fastx_clipper, fastx_pipeline
+from fastx_toolkit_tpu_torch.cli.tools import (
+    fastx_clipper,
+    fastx_pipeline,
+    fastx_quality_stats,
+)
 from fastx_toolkit_tpu_torch.cli.tools._shared import (
     BatchReader,
     render_same_as_input,
@@ -77,12 +91,14 @@ from fastx_toolkit_tpu_torch.engine.pipeline import (
     _thresholds,
     _words_T,
     packed_quality_stage,
+    to_device,
 )
 from fastx_toolkit_tpu_torch.kernels import (
     _build,
     align_cuda,
     align_unpacked_cuda,
     counts_cuda,
+    stats_cuda,
 )
 from fastx_toolkit_tpu_torch.kernels.align import align_batch
 from fastx_toolkit_tpu_torch.ops.clipper import (
@@ -104,7 +120,8 @@ HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
 CLIPPER_ARGV = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
-KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked")
+KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked",
+           "stats_hist", "stats_hist_b2")
 META = {  # name -> (source, the TPU kernel it replaces)
     "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed12.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
@@ -114,11 +131,15 @@ META = {  # name -> (source, the TPU kernel it replaces)
                      "fastx_toolkit_tpu/kernels/align_pallas.py:638"),
     "align_unpacked": ("fastx_toolkit_tpu_torch/csrc/align_unpacked.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:157"),
+    "stats_hist": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
+                   "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
+    "stats_hist_b2": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
+                      "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
 }
 # the least work a DP cell or a counted base needs, in int32 operations
 # (DP: ~10 for the score path — compares, selects, adds — and ~10 for the
 # path-statistic payload; counts: extract the code and the N bit, bump a
-# counter)
+# counter; histogram: classify, bin the quality, form the id, tally)
 DP_OPS_PER_CELL = 20
 COUNT_OPS_PER_BASE = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -134,12 +155,15 @@ def counters():
     return {"align_packed12": align_cuda.launches,
             "packed_counts": counts_cuda.launches,
             "align_packed": align_cuda.wide_launches,
-            "align_unpacked": align_unpacked_cuda.launches}
+            "align_unpacked": align_unpacked_cuda.launches,
+            "stats_hist": stats_cuda.launches,
+            "stats_hist_b2": stats_cuda.b2_launches}
 
 
 def reset_counters():
     align_cuda.launches = align_cuda.wide_launches = 0
     counts_cuda.launches = align_unpacked_cuda.launches = 0
+    stats_cuda.launches = stats_cuda.b2_launches = 0
 
 
 def record_cut(data: bytes, n_records: int) -> int:
@@ -226,6 +250,31 @@ def k4_launch_inputs():
         yield seen
     finally:
         align_unpacked_cuda._launch = launch
+
+
+@contextlib.contextmanager
+def k5_launch_inputs():
+    """As :func:`k4_launch_inputs`, for the K5/K5b launches."""
+    seen = []
+    launch = stats_cuda._launch
+
+    def keep(b2_mode, codes, quals, lengths):
+        seen.append((b2_mode, codes.clone(), quals.clone(), lengths.clone()))
+        return launch(b2_mode, codes, quals, lengths)
+
+    stats_cuda._launch = keep
+    try:
+        yield seen
+    finally:
+        stats_cuda._launch = launch
+
+
+def stats_chunk(data):
+    """The first CHUNK reads of a lane as the stats CLI's device path gives
+    them to K5: numpy ``(bases, quals, lengths)``, width padded to 32."""
+    batch = codec.parse(data[:record_cut(data, CHUNK)],
+                        filetype=codec.FASTQ_ONLY, q_offset=33)
+    return to_device(batch)[:3]
 
 
 def cuda_ms(fn, reps):
@@ -453,6 +502,21 @@ def main():
             label, got, want, FIELDS if tie_flag else FIELDS[:8]))
         return got
 
+    def k5_check(label, codes_, q_, l_, b2=False):
+        if b2:
+            k = "stats_hist_b2"
+            got = stats_cuda.stats_hist_b2(codes_, q_, l_)
+            want = stats_cuda.stats_hist_b2_plain(codes_, q_, l_)
+        else:
+            k = "stats_hist"
+            got = stats_cuda.stats_hist(codes_, q_, l_)
+            want = stats_cuda.stats_hist_plain(codes_, q_, l_)
+        torch.cuda.synchronize()
+        errs[k] = max(errs[k], compare(label, {"hist": got.flatten()},
+                                       {"hist": want.flatten()}, ("hist",)))
+        if int(got.sum()) != int(l_.clamp(0, q_.shape[1]).sum()):
+            fail("%s: the histogram does not count every base once" % label)
+
     def k4_path_check(path, seen, n_launches):
         # after the run and its counters are read: these launches compare
         if len(seen) != n_launches:
@@ -525,6 +589,39 @@ def main():
     k4_check("K4 adversarial H=99 lower/U L=300", a_b, a_l, h99)
     k4_check("K4 small-RNA B=1", rna_b[:1], rna_l[:1], SMALL_RNA)
     k4_check("K4 small-RNA B=300", rna_b[:300], rna_l[:300], SMALL_RNA)
+
+    # K5 on the first chunk of the headline and TruSeq lanes as the stats
+    # CLI's device path gives them (L padded to 128 and 160), on one quality
+    # value, on bytes outside ACGTN with qualities outside [-15, 93], at
+    # B=1, B=300 and L=301; K5b on the headline chunk's 2-bit codes (the
+    # lane is pure ACGT)
+    s_np = stats_chunk(data)
+    s_b, s_q, s_l = (torch.from_numpy(a).to(dev) for a in s_np)
+    k5_check("K5 lane %d x %d" % tuple(s_b.shape), s_b, s_q, s_l)
+    ts_b, ts_q, ts_l = (torch.from_numpy(a).to(dev)
+                        for a in stats_chunk(data_ts))
+    k5_check("K5 TruSeq lane %d x %d" % tuple(ts_b.shape), ts_b, ts_q, ts_l)
+    k5_check("K5 lane %d x %d, one quality value" % tuple(s_b.shape), s_b,
+             torch.full_like(s_q, 37), s_l)
+    adv_b = rng.choice(np.frombuffer(b"ACGTNacgtnX.-*\0", np.uint8),
+                       size=(65536, 128))
+    adv_q = rng.integers(-128, 128, size=(65536, 128)).astype(np.int8)
+    adv_l = rng.integers(-2, 140, 65536).astype(np.int32)
+    k5_check("K5 adversarial bytes and qualities 65536 x 128",
+             *(torch.from_numpy(a).to(dev) for a in (adv_b, adv_q, adv_l)))
+    k5_check("K5 lane B=1", s_b[:1], s_q[:1], s_l[:1])
+    k5_check("K5 lane B=300", s_b[:300], s_q[:300], s_l[:300])
+    l301_b = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(8192, 301))
+    l301_q = rng.integers(2, 42, size=(8192, 301)).astype(np.int8)
+    l301_l = rng.integers(0, 302, 8192).astype(np.int32)
+    k5_check("K5 random 8192 x 301",
+             *(torch.from_numpy(a).to(dev) for a in (l301_b, l301_q, l301_l)))
+    s_b2 = torch.from_numpy(native.pack2(s_np[0], s_np[1], (), False)[0]).to(dev)
+    k5_check("K5b lane %d x %d, 2-bit codes" % tuple(s_q.shape), s_b2, s_q,
+             s_l, b2=True)
+    if not torch.equal(stats_cuda.stats_hist_b2(s_b2, s_q, s_l),
+                       stats_cuda.stats_hist(s_b, s_q, s_l)):
+        fail("K5b and K5 differ on the headline chunk")
 
     # 4. paths, each against a host reference that never touches a kernel
     launches = {}
@@ -623,6 +720,48 @@ def main():
     k4_path_check("c", seen_c, ln["align_unpacked"])
     del seen_c
 
+    # (d) fastx_quality_stats, old and -N formats, on two lanes: the device
+    # engine (the default on a card, K5) against the host engine
+    os.environ.pop("FASTX_STATS_PATH", None)
+    stats_s = {}
+    for lane, lane_data in (("headline", data), ("TruSeq", data_ts)):
+        for argv in (["-Q", "33"], ["-Q", "33", "-N"]):
+            label = "(d) fastx_quality_stats %s, %s lane" % (" ".join(argv),
+                                                             lane)
+            with k5_launch_inputs() as seen_d:
+                status, got, _rep, dev_s, ln = run_cli(
+                    fastx_quality_stats, "fastx_quality_stats", argv,
+                    lane_data)
+            launches["d %s %s" % (lane, " ".join(argv))] = ln
+            os.environ["FASTX_STATS_PATH"] = "host"
+            try:
+                h_status, want_d, _rep, host_s, h_ln = run_cli(
+                    fastx_quality_stats, "fastx_quality_stats", argv,
+                    lane_data)
+            finally:
+                del os.environ["FASTX_STATS_PATH"]
+            stats_s[(lane, argv[-1] == "-N")] = (dev_s, host_s)
+            print("  %s: status %d, %d lines, device engine %.2f s, "
+                  "launches %s; host engine %.2f s" % (
+                      label, status, got.count(b"\n"), dev_s, ln, host_s),
+                  flush=True)
+            if status != 0 or h_status != 0:
+                fail("%s exited with status %d / %d (host)"
+                     % (label, status, h_status))
+            check_bytes(label, got, want_d)
+            if ln["stats_hist"] <= 0 or any(h_ln.values()):
+                fail("%s: K5 launches %s on the device engine, %s on the "
+                     "host engine" % (label, ln, h_ln))
+            if len(seen_d) != ln["stats_hist"]:
+                fail("%s: %d K5 launches counted, %d kept"
+                     % (label, ln["stats_hist"], len(seen_d)))
+            for i, (b2_, c_, q_, l_) in enumerate(seen_d):
+                k5_check("K5 path (d) launch %d [%d x %d]"
+                         % (i, q_.shape[0], q_.shape[1]), c_, q_, l_, b2=b2_)
+            del seen_d
+    print("  (d) outputs equal the host engine's on both lanes and formats",
+          flush=True)
+
     # 5. times
     times = []
     for it in range(3):
@@ -641,6 +780,12 @@ def main():
                     ("c", "fastx_pipeline -v (classic loop) 1M x 100")):
         print("  path (%s) %s: %.0f reads/s (one run, %.3f s) on %s"
               % (p, what, N_READS / path_s[p], path_s[p], card), flush=True)
+    for (lane, new_fmt), (dev_s, host_s) in stats_s.items():
+        print("  path (d) fastx_quality_stats%s %s lane: device engine %.0f "
+              "reads/s (%.3f s), host engine %.0f reads/s (%.3f s), one run "
+              "each on %s" % (" -N" if new_fmt else "", lane,
+                              N_READS / dev_s, dev_s, N_READS / host_s,
+                              host_s, card), flush=True)
 
     # device times at the phase-3 shapes, with each run's work for the bound
     lens_k1 = l.clamp(max=seq_len)
@@ -678,14 +823,39 @@ def main():
             "%d reads x %d bp, H=%d" % (CHUNK, rna_b.shape[1],
                                         len(SMALL_RNA))),
     }
+    # K5/K5b: 2 bytes (K5b 1.25) read a counted base, the lengths, and the
+    # histogram written once; the library call is one torch.bincount over
+    # the same flat ids, precomputed
+    n_valid = int(s_l.clamp(0, s_b.shape[1]).sum())
+    fixed = 4 * s_l.numel() + 4 * s_b.shape[1] * stats_cuda.F
+    flat = stats_cuda.flat_ids(stats_cuda.ascii_slots(s_b), s_q, s_l)
+    minlength = s_b.shape[1] * stats_cuda.F
+    shapes["stats_hist"] = (
+        lambda: stats_cuda.stats_hist(s_b, s_q, s_l),
+        lambda: stats_cuda.stats_hist_plain(s_b, s_q, s_l),
+        n_valid * COUNT_OPS_PER_BASE, 2 * n_valid + fixed,
+        "%d reads x %d bp (L=%d)" % (CHUNK, READ_LEN, s_b.shape[1]))
+    shapes["stats_hist_b2"] = (
+        lambda: stats_cuda.stats_hist_b2(s_b2, s_q, s_l),
+        lambda: stats_cuda.stats_hist_b2_plain(s_b2, s_q, s_l),
+        n_valid * COUNT_OPS_PER_BASE, n_valid // 4 + n_valid + fixed,
+        "%d reads x %d bp (L=%d), 2-bit codes" % (CHUNK, READ_LEN,
+                                                  s_b.shape[1]))
+    library = {k: None for k in shapes}
+    for k in ("stats_hist", "stats_hist_b2"):
+        library[k] = cuda_ms(
+            lambda: torch.bincount(flat, minlength=minlength), 10)
     ms, plain_ms, bound = {}, {}, {}
     for k, (fn, plain, ops, nbytes, shape) in shapes.items():
         ms[k] = cuda_ms(fn, 10)
         plain_ms[k] = cuda_ms(plain, 2)
         bound[k] = dp_bound(ops, nbytes, clock_hz)
-        print("  %-15s %.3f ms (plain torch %.3f ms; bound %.4f ms by %s) "
-              "at %s on %s" % (k, ms[k], plain_ms[k], bound[k][0],
-                               bound[k][1], shape, card), flush=True)
+        print("  %-15s %.3f ms (plain torch %.3f ms; library %s; bound "
+              "%.4f ms by %s) at %s on %s"
+              % (k, ms[k], plain_ms[k],
+                 "n/a" if library[k] is None
+                 else "torch.bincount %.3f ms" % library[k],
+                 bound[k][0], bound[k][1], shape, card), flush=True)
 
     # 6. kernels
     total = {k: sum(ln[k] for ln in launches.values()) for k in KERNELS}
@@ -694,7 +864,7 @@ def main():
          "replaces": META[k][1], "launches": total[k],
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
-         "library_ms": None}
+         "library_ms": library[k]}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ can resolve an exact tie that involves a neutral (N) score differently.
 The DP kernels flag such reads (tie_fragile) and the line engine, the
 pipeline CLI and the clipper CLI re-decide only those here, with the
 native codec's bit-faithful float32 clipper DP (``native.clip_float``),
-so the output matches the reference byte for byte.  Pure numpy: the fragile subset is tiny and costs no device round
-trip.
+so the output matches the reference byte for byte; without the native
+codec it takes the numpy float32 engine (``kernels/align.
+align_batch_float32``), which gives the same results.  Pure numpy: the
+fragile subset is tiny and costs no device round trip.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import native
-from ..kernels.align import _N
+from ..kernels.align import _N, align_batch_float32
 
 
 def cutoff_index_np(res, lengths, min_adapter_len: int = 0):
@@ -44,16 +46,15 @@ def clip_decide_np(bases, lengths, adapter: bytes, *, min_length: int,
     mirroring ops/clipper.clip_batch's cascade exactly; ``align_bases`` /
     ``align_lengths`` feed the DP the legacy emulation's view of the
     reads."""
-    if native.LIB is None:
-        raise RuntimeError("the float32 tie re-decision needs the native "
-                           "codec (the numpy float32 DP is a later port "
-                           "slice)")
     bases = np.asarray(bases, np.uint8)
     lengths = np.asarray(lengths, np.int64)
     ab = bases if align_bases is None else np.asarray(align_bases, np.uint8)
     al = lengths if align_lengths is None else np.asarray(align_lengths,
                                                          np.int64)
-    res = native.clip_float(ab, al, adapter)
+    if native.LIB is not None:
+        res = native.clip_float(ab, al, adapter)
+    else:
+        res = align_batch_float32(ab, al, adapter)
     i = cutoff_index_np(res, lengths, min_adapter_len)
     cut = np.where(i > 0, i + keep_delta, i)
     new_len = np.where(cut > 0, np.minimum(lengths, cut), lengths).astype(

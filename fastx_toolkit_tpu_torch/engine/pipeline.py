@@ -24,8 +24,11 @@ bodies that give identical decisions:
 :func:`packed_decisions_pipeline` routes a packed chunk as the reference
 does: the fast body inside the packed kernels' gate (an ACGTN adapter of
 H_pad <= 72 within the field bounds), else the unpacking body and K4.
-The stats reduction (``with_stats``) waits for the K5 slice.  Every body
-runs on the CPU through the kernels' plain versions.
+The stats reduction (``with_stats``) raises: its only consumer is the
+sharded pipeline (``parallel/mesh.py`` in the reference), which comes with
+the multi-GPU slice; the reference's bodies compute it with
+``ops/stats.counts_only``, which the port has.  Every body runs on the
+CPU through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ from ..ops.clipper import (
     clip_write_mask,
 )
 
-_STATS = ("the stats reduction (with_stats) needs the K5 histogram kernel, "
-          "a later port slice")
+_STATS = ("the stats reduction (with_stats) feeds only the sharded "
+          "multi-GPU pipeline, a later port slice")
 
 
 def padded_width(l: int) -> int:  # noqa: E741
@@ -272,7 +275,7 @@ def packed_decisions_pipeline(cfg: PipelineConfig, b2, planes, lengths, *,
     fully-packed body (K1 or K3, and K2); any other (an adapter outside
     ACGTN or of H_pad > 72) takes :func:`packed_pipeline_body` (K4).
 
-    Raises NotImplementedError for the stats reduction (the K5 slice)."""
+    Raises NotImplementedError for the stats reduction (see ``_STATS``)."""
     if cfg.with_stats:
         raise NotImplementedError(_STATS)
     if seq_len is None:

@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("align_packed12.cu", "align_packed.cu", "align_unpacked.cu",
-           "packed_counts.cu")
+           "packed_counts.cu", "stats_hist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfastx_torch_kernels.so"
@@ -128,6 +128,9 @@ def library() -> ctypes.CDLL:
             lib.fx_align_unpacked_smem_ok.restype = ci
             lib.fx_packed_counts.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
             lib.fx_packed_counts.restype = ci
+            lib.fx_stats_hist.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp,
+                                          vp]
+            lib.fx_stats_hist.restype = ci
             _lib = lib
     return _lib
 

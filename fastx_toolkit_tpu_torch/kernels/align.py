@@ -228,6 +228,156 @@ def align_batch(bases: torch.Tensor, lengths: torch.Tensor, adapter: bytes,
     return out
 
 
+def align_batch_float32(bases, lengths, adapter: bytes):
+    """float32 batch engine, bit-faithful to the C (numpy, host).
+
+    The port's copy of ``fastx_toolkit_tpu/kernels/align.py::
+    align_batch_float32``: FASTX-Toolkit's sequence_alignment.cpp float
+    arithmetic exactly, per-cell score = float32 candidate max in the C's
+    priority order (UL checked first, then UP, then LEFT), with the same
+    accumulation order as the sequential fill, so its results match the
+    reference binary bit for bit, including the N-read ties the
+    exact-decimal engines resolve deterministically.  Vectorized over the
+    batch: the (x, y) cell loops are Python, every op is a [B]-vector —
+    meant for the small tie_fragile subset of a batch, not whole lanes.
+    The host tie fix (``engine/hostfix.py``) takes it when the native
+    codec (``native.clip_float``) is unavailable.
+
+    Path statistics are carried forward per cell exactly like
+    align_batch (the forward decisions ARE the traceback: the C's
+    traceback walks the origin matrix recorded during the fill)."""
+    bases = np.asarray(bases, np.uint8)
+    lengths = np.asarray(lengths, np.int64)
+    B, L = bases.shape
+    t = np.frombuffer(adapter, np.uint8)
+    H = len(adapter)
+    gap = np.float32(-5.0)
+    ys = np.arange(H)
+    tb = np.where(ys <= 3, np.float32(0),
+                  (gap * (ys - 3).astype(np.float32)).astype(np.float32))
+    tb = tb.astype(np.float32)
+    t_is_n = t == _N
+
+    # previous-column state
+    psc = np.zeros((H, B), np.float32)
+    pstat = np.zeros((6, H, B), np.int32)  # m, mm, g, nm, qs, ts
+    best = np.full(B, np.float32(-1000000), np.float32)
+    bstat = np.zeros((7, B), np.int32)  # m, mm, g, nm, qs, ts + bx
+    b_y = np.zeros(B, np.int32)
+
+    NEGBAN = np.float32(-100000)
+    for x in range(L):
+        qc = bases[:, x]
+        q_is_n = qc == _N
+        cur = np.empty((H, B), np.float32)
+        cstat = np.empty((6, H, B), np.int32)
+        up_sc = np.full(B, np.float32(0.0), np.float32)  # query border
+        for y in range(H):
+            if t_is_n[y]:
+                delta = np.where(q_is_n, np.float32(0.0), np.float32(0.1))
+            else:
+                delta = np.where(
+                    q_is_n, np.float32(0.1),
+                    np.where(qc == t[y], np.float32(1.0), np.float32(-1.0)),
+                ).astype(np.float32)
+            # candidate scores, exactly the C's operand order
+            if x == 0:
+                ul_src = tb[y - 1] if y > 0 else np.float32(0.0)
+                ul = np.float32(ul_src) + delta
+                left = np.float32(tb[y] + gap)
+                left = np.full(B, left, np.float32)
+            else:
+                ul_src = psc[y - 1] if y > 0 else np.float32(0.0)
+                ul = (ul_src + delta).astype(np.float32)
+                left = (psc[y] + gap).astype(np.float32)
+            up = (up_sc + gap).astype(np.float32)
+            banned = y > 3 and y - 3 > x
+            if banned:
+                left = np.full(B, NEGBAN, np.float32)
+            # priority max: UL, then UP, then LEFT (strict >)
+            s = np.maximum(ul, np.float32(-100000000))
+            o = np.zeros(B, np.int8)  # 0=UL
+            m_up = up > s
+            s = np.where(m_up, up, s).astype(np.float32)
+            o = np.where(m_up, 1, o)
+            m_left = left > s
+            s = np.where(m_left, left, s).astype(np.float32)
+            o = np.where(m_left, 2, o)
+            cur[y] = s
+            # forward stats per origin
+            is_match = (~q_is_n) & ~t_is_n[y] & (qc == t[y])
+            is_mm = (~q_is_n) & ~t_is_n[y] & (qc != t[y])
+            is_nm = q_is_n | t_is_n[y]
+            if x == 0 or y == 0:  # UL source is a border: fresh path
+                ul_m = is_match.astype(np.int32)
+                ul_mm = is_mm.astype(np.int32)
+                ul_g = np.zeros(B, np.int32)
+                ul_nm = is_nm.astype(np.int32)
+                ul_qs = np.full(B, x, np.int32)
+                ul_ts = np.full(B, y, np.int32)
+            else:
+                ul_m = pstat[0, y - 1] + is_match
+                ul_mm = pstat[1, y - 1] + is_mm
+                ul_g = pstat[2, y - 1]
+                ul_nm = pstat[3, y - 1] + is_nm
+                ul_qs = pstat[4, y - 1]
+                ul_ts = pstat[5, y - 1]
+            if y == 0:  # UP source is the query border: fresh
+                up_m = np.zeros(B, np.int32)
+                up_mm = np.zeros(B, np.int32)
+                up_g = np.ones(B, np.int32)
+                up_nm = np.zeros(B, np.int32)
+                up_qs = np.full(B, x, np.int32)
+                up_ts = np.zeros(B, np.int32)
+            else:
+                up_m = cstat[0, y - 1]
+                up_mm = cstat[1, y - 1]
+                up_g = cstat[2, y - 1] + 1
+                up_nm = cstat[3, y - 1]
+                up_qs = cstat[4, y - 1]
+                up_ts = cstat[5, y - 1]
+            if x == 0:  # LEFT source is the target border: fresh
+                lf_m = np.zeros(B, np.int32)
+                lf_mm = np.zeros(B, np.int32)
+                lf_g = np.ones(B, np.int32)
+                lf_nm = np.zeros(B, np.int32)
+                lf_qs = np.full(B, x, np.int32)
+                lf_ts = np.full(B, y, np.int32)
+            else:
+                lf_m = pstat[0, y]
+                lf_mm = pstat[1, y]
+                lf_g = pstat[2, y] + 1
+                lf_nm = pstat[3, y]
+                lf_qs = pstat[4, y]
+                lf_ts = pstat[5, y]
+            for k, (a, b, c) in enumerate((
+                (ul_m, up_m, lf_m), (ul_mm, up_mm, lf_mm),
+                (ul_g, up_g, lf_g), (ul_nm, up_nm, lf_nm),
+                (ul_qs, up_qs, lf_qs), (ul_ts, up_ts, lf_ts),
+            )):
+                cstat[k, y] = np.where(o == 0, a, np.where(o == 1, b, c))
+            # global best: strict >, (x, y) fill order, x < read length
+            improve = (s > best) & (x < lengths)
+            best = np.where(improve, s, best).astype(np.float32)
+            for k in range(6):
+                bstat[k] = np.where(improve, cstat[k, y], bstat[k])
+            bstat[6] = np.where(improve, x, bstat[6])
+            b_y = np.where(improve, y, b_y)
+            up_sc = s
+        psc = cur
+        pstat = cstat
+    return {
+        "matches": bstat[0],
+        "mismatches": bstat[1],
+        "gaps": bstat[2],
+        "neutral": bstat[3],
+        "query_start": bstat[4],
+        "query_end": bstat[6],
+        "target_start": bstat[5],
+        "target_end": b_y,
+    }
+
+
 # ---------------------------------------------------------------------------
 # debug printers (fastx_clipper -D / -DD), numpy: copies of the reference's
 # float32 oracle and its print_matrix / SequenceAlignmentResults::print
@@ -238,7 +388,6 @@ FROM_LEFT = 2
 FROM_UPPER_LEFT = 3
 
 
-@dataclasses.dataclass
 @dataclasses.dataclass
 class AlignResult:
     query_size: int = 0

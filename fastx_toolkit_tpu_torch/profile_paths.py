@@ -19,7 +19,9 @@ name.  The paths:
 * ``truseq``    — ``fastx_pipeline`` on the headline chain with the 33-base
   TruSeq adapter (line engine, K3 and K2), 1M x 150 bp;
 * ``classic``   — ``fastx_pipeline -v`` on the headline chain: the classic
-  per-batch loop (K4), 1M x 100 bp.
+  per-batch loop (K4), 1M x 100 bp;
+* ``stats``     — ``fastx_quality_stats -Q 33`` on the headline lane with
+  the ``device`` engine (the default on a card: parse, upload, K5).
 
 Each line carries the card's name and power limit.
 """
@@ -39,7 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import synth
 from .cli.common import CliContext
-from .cli.tools import fastx_clipper, fastx_pipeline
+from .cli.tools import fastx_clipper, fastx_pipeline, fastx_quality_stats
 
 HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
             "fastq_quality_trimmer -t 20 | fastq_masker -q 20 | "
@@ -100,6 +102,7 @@ def main(argv=None):
                                                  TRUSEQ.decode())],
                    synth.synth_lane_bytes(n, 150, seed=43, adapter=TRUSEQ)),
         "classic": (fastx_pipeline, ["-v", "-Q", "33", HEADLINE], lane),
+        "stats": (fastx_quality_stats, ["-Q", "33"], lane),
     }
     for name, (tool, argv, data) in paths.items():
         cut = data.find(b"\n@r%d\n" % min(n - 1, 20000)) + 1

@@ -324,3 +324,75 @@ def test_stream_truseq_on_card_matches_cpu(dev):
             assert align_cuda.launches == before[0]
             assert align_cuda.wide_launches - before[1] >= 4
     assert outs[0] == outs[1]
+
+
+def _stats_operands(seed, B, L, alphabet=b"ACGTN", qlo=2, qhi=41,
+                    one_q=None):
+    rng = np.random.default_rng(seed)
+    bases = rng.choice(np.frombuffer(alphabet, np.uint8), size=(B, L))
+    quals = (np.full((B, L), one_q, np.int8) if one_q is not None
+             else rng.integers(qlo, qhi, size=(B, L)).astype(np.int8))
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[:B // 2] = L
+    return bases, quals, lengths
+
+
+@pytest.mark.parametrize("B,L,kw", [
+    (262144, 128, {}),
+    (262144, 160, {}),
+    (50000, 128, {"one_q": 37}),
+    (20000, 100, {"alphabet": b"ACGTNacgtnX.-*", "qlo": -128, "qhi": 128}),
+    (1, 128, {}), (300, 128, {}), (3000, 301, {}),
+])
+def test_k5_matches_plain_on_card(dev, B, L, kw):
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    bases, quals, lengths = (torch.from_numpy(a).to(dev)
+                             for a in _stats_operands(B + L, B, L, **kw))
+    before = stats_cuda.launches
+    got = stats_cuda.stats_hist(bases, quals, lengths)
+    want = stats_cuda.stats_hist_plain(bases, quals, lengths)
+    torch.cuda.synchronize()
+    assert stats_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got.sum()) == int(lengths.clamp(max=L).sum())
+
+
+@pytest.mark.parametrize("B,L", [(262144, 100), (300, 150), (1, 301)])
+def test_k5b_matches_plain_on_card(dev, B, L):
+    from fastx_toolkit_tpu_torch.engine.pipeline import pack_batch2
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    bases, quals, lengths = _stats_operands(B * 7 + L, B, L, alphabet=b"ACGT")
+    b2, _ = pack_batch2(bases, quals, PipelineConfig(), n_plane=False)
+    b2, quals, lengths = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (b2, quals, lengths))
+    before = stats_cuda.b2_launches
+    got = stats_cuda.stats_hist_b2(b2, quals, lengths)
+    want = stats_cuda.stats_hist_b2_plain(b2, quals, lengths)
+    torch.cuda.synchronize()
+    assert stats_cuda.b2_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, stats_cuda.stats_hist(
+        torch.from_numpy(bases).to(dev), quals, lengths))
+
+
+@pytest.mark.parametrize("argv", [["-Q", "33"], ["-Q", "33", "-N"]])
+def test_stats_cli_on_card_matches_cpu(dev, argv, monkeypatch):
+    """fastx_quality_stats on the device engine (K5) over several blocks,
+    equal to its CPU run and to the host engine."""
+    from fastx_toolkit_tpu_torch.cli.tools import fastx_quality_stats
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    monkeypatch.setenv("FASTX_TPU_BLOCK_BYTES", "100000")
+    monkeypatch.delenv("FASTX_STATS_PATH", raising=False)
+    data = _lane(4000, seed=16)
+    before = stats_cuda.launches
+    got = _cli_run(fastx_quality_stats, argv, data, "cuda", monkeypatch)
+    launched = stats_cuda.launches - before
+    monkeypatch.setenv("FASTX_STATS_PATH", "device")
+    want = _cli_run(fastx_quality_stats, argv, data, "cpu", monkeypatch)
+    monkeypatch.setenv("FASTX_STATS_PATH", "host")
+    host = _cli_run(fastx_quality_stats, argv, data, "cpu", monkeypatch)
+    assert got == want == host and want[0] == 0
+    assert launched >= 4  # the default engine on a card is the device

@@ -127,3 +127,50 @@ def test_native_library_is_the_ports_own_build():
         os.path.join(pkg, "_build", "libfastx_codec.so"))
     assert _code_lines(native._SRC) == _code_lines(
         os.path.join(ROOT, "native", "fastx_codec.cpp"))
+
+
+def _n_rich(seed, B, L, adapter):
+    """Reads rich in N with the adapter spiked in: many exact float ties."""
+    rng = np.random.default_rng(seed)
+    bases = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(B, L),
+                       p=[0.175] * 4 + [0.3])
+    ad = np.frombuffer(adapter, np.uint8)
+    for i in range(0, B, 2):
+        pos = int(rng.integers(0, L - 4))
+        seg = ad[:L - pos].copy()
+        seg[rng.random(len(seg)) < 0.2] = ord("N")
+        bases[i, pos:pos + len(seg)] = seg
+    lengths = rng.integers(0, L + 1, B).astype(np.int64)
+    return bases, lengths
+
+
+@pytest.mark.parametrize("adapter", [b"CTGTAGGCACCATCAAT", b"CTNNAGGCAC"])
+def test_align_batch_float32_matches_reference(adapter):
+    from fastx_toolkit_tpu.kernels.align import (
+        align_batch_float32 as ref_float32,
+    )
+    from fastx_toolkit_tpu_torch.kernels.align import align_batch_float32
+
+    bases, lengths = _n_rich(6 + len(adapter), 96, 40, adapter)
+    want = ref_float32(bases, lengths, adapter)
+    got = align_batch_float32(bases, lengths, adapter)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@needs_native
+def test_clip_decide_np_without_native_matches_native(monkeypatch):
+    from fastx_toolkit_tpu_torch.engine import hostfix
+
+    adapter = b"CTGTAGGCACCATCAAT"
+    bases, lengths = _n_rich(9, 120, 45, adapter)
+    kw = dict(min_length=5, keep_delta=0, discard_non_clipped=False,
+              discard_clipped=False, keep_n=False, show_adapter_only=False,
+              min_adapter_len=0)
+    want = hostfix.clip_decide_np(bases, lengths, adapter, **kw)
+    monkeypatch.setattr(native, "LIB", None)
+    got = hostfix.clip_decide_np(bases, lengths, adapter, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (want[2] != 0).any() and (want[2] == 0).any()

@@ -34,6 +34,7 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import fastx_toolkit_tpu_torch\n"
         "import fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline\n"
+        "import fastx_toolkit_tpu_torch.cli.tools.fastx_quality_stats\n"
         "import fastx_toolkit_tpu_torch.engine.lines\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n")
@@ -64,8 +65,9 @@ def test_port_cli_runs_with_jax_unimportable():
 
 
 def test_port_runs_with_the_jax_package_and_bench_blocked():
-    """Both CLIs and chip_smoke's helpers, with jax, the JAX package and
-    bench made unimportable: nothing of them is loaded."""
+    """The CLIs (the stats CLI on both engines) and chip_smoke's helpers,
+    with jax, the JAX package and bench made unimportable: nothing of them
+    is loaded."""
     r = _run_py(
         "import io, sys\n"
         "for m in ('jax', 'fastx_toolkit_tpu', 'bench'):\n"
@@ -87,6 +89,16 @@ def test_port_runs_with_the_jax_package_and_bench_blocked():
         "                     stderr=err, stdout_text=io.StringIO())\n"
         "    assert tool.tool_main(ctx, argv) == 0, err.getvalue()\n"
         "    assert out.getvalue().startswith(b'@r'), argv\n"
+        "from fastx_toolkit_tpu_torch.cli.tools import fastx_quality_stats\n"
+        "import os\n"
+        "for engine in ('host', 'device'):\n"
+        "    os.environ['FASTX_STATS_PATH'] = engine\n"
+        "    out, err = io.BytesIO(), io.StringIO()\n"
+        "    ctx = CliContext(prog='t', stdin=io.BytesIO(data), stdout=out,\n"
+        "                     stderr=err, stdout_text=io.StringIO())\n"
+        "    assert fastx_quality_stats.tool_main(ctx, ['-N']) == 0, \\\n"
+        "        err.getvalue()\n"
+        "    assert out.getvalue().startswith(b'cycle\\tmax_count'), engine\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None and (\n"
         "    m in ('jax', 'bench') or m.split('.')[0] == 'fastx_toolkit_tpu')]\n"
         "assert not loaded, loaded\n"

@@ -115,7 +115,7 @@ def test_outside_the_gate_raises():
     """Chunks outside K1's gate decide as the reference does: a 32-base
     adapter (the wide packed DP, K3's route), an adapter outside ACGTN
     (the unpacking body, K4's route) and reads of up to 600 bp (K3's
-    route); the stats reduction still raises (the K5 slice)."""
+    route); the stats reduction still raises (the multi-GPU slice)."""
     for adapter, L in ((b"ACGT" * 8, 72), (b"CTGTAGGCACCATCAAU", 72),
                        (ADAPTER, 600)):
         cfg = RefConfig(adapter=adapter)
@@ -136,7 +136,7 @@ def test_outside_the_gate_raises():
     b2 = np.zeros((4, 26), np.uint8)
     planes = np.zeros((4, 3, 13), np.uint8)
     lengths = np.full(4, 100, np.int16)
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         port_pipeline.packed_decisions_pipeline(
             port_pipeline.PipelineConfig(with_stats=True), b2, planes,
             lengths, has_n_plane=False, device="cpu")
