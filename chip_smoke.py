@@ -11,8 +11,8 @@ of the JAX package:
 1. device  — CUDA must be available; prints the card's name and power
    limit (``nvidia-smi --query-gpu=name,power.limit``);
 2. build   — compiles the CUDA kernels from ``fastx_toolkit_tpu_torch/csrc``
-   with nvcc and prints the build seconds and the compiler's register /
-   spill report;
+   with nvcc, the paths' library and the probe's at once, and prints the
+   build seconds and the compiler's register / spill report;
 3. kernels — every kernel against its plain torch version on the card,
    every output field equal (tolerance 0: integer results):
    K1 (packed adapter DP) and K2 (packed counts) on the first 262,144
@@ -29,7 +29,12 @@ of the JAX package:
    (its 2-bit mode) on the headline reads; in phase 4, K4 again on the
    inputs of every launch that paths (a) and (c) made, and K5 on those
    of path (d) (kept as device copies during the run), so each is held
-   against its plain version at each shape a path gives it;
+   against its plain version at each shape a path gives it; P (the
+   plane-op probe, ``csrc/plane_probe.cu``) in every variant (``reg`` and
+   ``smem``, the four TPU cases, DPX for the dependent two) at every shape
+   path (p) times (B = 262,144 at H = 17, 21, 33, 72 with its shared
+   memory a block, and the TPU's shape) and at the TPU's H with B =
+   262,144, K = 32, U = 256;
 4. paths   — at full width, each run with the kernels' launch counters
    set to 0 just before, each output held byte for byte against a host
    reference that never touches a kernel (numpy and the native float32
@@ -48,13 +53,30 @@ of the JAX package:
          and the TruSeq lanes with the ``device`` engine (the default on
          a card: K5), each held against a run with
          ``FASTX_STATS_PATH=host`` (the native histogram; no kernel);
+   (p)   the probe's entry point (``fastx_toolkit_tpu_torch.probe``'s
+         ``measure``, budget 15 s): every variant timed at the DP shapes
+         and the TPU's, its lines in ``probe.jsonl`` beside the build;
+         each timed run's output held against the plain version (tolerance
+         0); a ``smem`` kernel whose SASS shows fewer than one shared load
+         and store a plane op fails;
 5. times   — end-to-end reads/s of the headline (median of 3 runs after a
    warm-up) and of paths (a)-(d) (one timed run each; (d) on both
    engines), and the device time of K1-K5b beside their plain versions
    and, for K5/K5b, ``torch.bincount`` on precomputed flat ids (CUDA
-   events);
-6. prints the kernels' JSON line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+   events); each kernel's bound is the larger of its device-memory bytes
+   over 3.35 TB/s and its int32 operations at the card's int32 issue
+   rate (132 SMs x 4 schedulers x 32 lanes x the max SM clock: P's
+   ``reg`` runs pass the 64 INT32 lanes an SM, so the issue rate is the
+   ceiling); beside it, as readings and not as the bound: the same
+   operations at the best ``reg`` int32 rate P reached at the kernel's H
+   (``p_rate_ms``), for K3 and K4 the shared-memory bytes their current
+   row state moves over the best ``smem`` rate P reached
+   (``smem_state_ms``), and the bound from the assumed INT32-lane peak
+   (SMs x 64 lanes x the max SM clock; ``assumed_bound_ms``); P's own
+   entry is its ``reg`` dependent int32 run at [33 x 262,144] beside its
+   plain version, bound the same way;
+6. prints its own seconds, the kernels' JSON line, the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero.  Without CUDA it exits 2 and prints no
 result.
@@ -67,12 +89,13 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from fastx_toolkit_tpu_torch import synth
+from fastx_toolkit_tpu_torch import probe, synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
 from fastx_toolkit_tpu_torch.cli.tools import (
     fastx_clipper,
@@ -98,9 +121,19 @@ from fastx_toolkit_tpu_torch.kernels import (
     align_cuda,
     align_unpacked_cuda,
     counts_cuda,
+    probe_cuda,
     stats_cuda,
 )
 from fastx_toolkit_tpu_torch.kernels.align import align_batch
+from fastx_toolkit_tpu_torch.kernels.probe import (
+    CASES,
+    TPU_B,
+    TPU_K,
+    TPU_U,
+    plane_ops,
+    plane_probe_plain,
+)
+from fastx_toolkit_tpu_torch.probe import cuda_ms
 from fastx_toolkit_tpu_torch.ops.clipper import (
     adapter_cutoff_index,
     clip_cut_lengths,
@@ -121,7 +154,7 @@ CLIPPER_ARGV = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
 KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked",
-           "stats_hist", "stats_hist_b2")
+           "stats_hist", "stats_hist_b2", "plane_probe")
 META = {  # name -> (source, the TPU kernel it replaces)
     "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed12.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
@@ -135,6 +168,8 @@ META = {  # name -> (source, the TPU kernel it replaces)
                    "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
     "stats_hist_b2": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
                       "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
+    "plane_probe": ("fastx_toolkit_tpu_torch/csrc/plane_probe.cu",
+                    "bench.py:1274"),
 }
 # the least work a DP cell or a counted base needs, in int32 operations
 # (DP: ~10 for the score path — compares, selects, adds — and ~10 for the
@@ -143,7 +178,23 @@ META = {  # name -> (source, the TPU kernel it replaces)
 DP_OPS_PER_CELL = 20
 COUNT_OPS_PER_BASE = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-INT32_LANES = 132 * 64     # SMs x INT32 lanes
+INT32_LANES = 132 * 64     # SMs x INT32 lanes (the assumed peak)
+# SMs x 4 schedulers x 32 lanes: one warp instruction a clock per
+# scheduler, the most int32 instructions the card can issue (P showed the
+# compiler spreading int32 adds over the INT32 and FMA pipes, past the
+# INT32 lanes' rate): the bounds' operation term
+ISSUE_LANES = 132 * 4 * 32
+# shared-memory words a DP cell reads and writes in the current designs,
+# from the sources: K3 loads and stores row y's score, W1 and W2
+# (csrc/align_packed.cu); K4 its 7 Cell words (csrc/align_unpacked.cu, in
+# shared memory while H <= 54); K1 keeps its row state in registers.  A
+# reading beside the bound: the alignment itself does not need it
+K3_SMEM_WORDS_PER_CELL = 6
+K4_SMEM_WORDS_PER_CELL = 14
+K4_SMEM_MAX_H = 54
+# the probe's timed variant in the kernels line: the dependent int32 chain
+# in registers at K3's TruSeq shape
+PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
 
 
 def fail(msg):
@@ -157,13 +208,15 @@ def counters():
             "align_packed": align_cuda.wide_launches,
             "align_unpacked": align_unpacked_cuda.launches,
             "stats_hist": stats_cuda.launches,
-            "stats_hist_b2": stats_cuda.b2_launches}
+            "stats_hist_b2": stats_cuda.b2_launches,
+            "plane_probe": probe_cuda.launches}
 
 
 def reset_counters():
     align_cuda.launches = align_cuda.wide_launches = 0
     counts_cuda.launches = align_unpacked_cuda.launches = 0
     stats_cuda.launches = stats_cuda.b2_launches = 0
+    probe_cuda.launches = 0
 
 
 def record_cut(data: bytes, n_records: int) -> int:
@@ -277,28 +330,81 @@ def stats_chunk(data):
     return to_device(batch)[:3]
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds per call over ``reps`` calls (after one
-    warm-up call), by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def dp_bound(cells, nbytes, clock_hz):
-    """(bound_ms, bound_by) for ``cells`` DP cells (or counted bases, with
-    the ops already multiplied in by the caller) and ``nbytes`` moved."""
-    t_ops = cells / (INT32_LANES * clock_hz)
+def roofline(ops, nbytes, ops_per_s):
+    """(ms, bound_by): the larger of ``ops`` int32 operations at
+    ``ops_per_s`` and ``nbytes`` of device memory over 3.35 TB/s."""
+    t_ops = ops / ops_per_s
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_rates(results):
+    """The rates P reached at the DP shapes: the best ``reg`` int32
+    plane-op rate at each H and over all H, and the best ``smem`` int32
+    read+write rate (bytes/s)."""
+    at_h, smem = {}, 0.0
+    for r in results:
+        if r["dtype"] != "int32" or r["plane_shape"][1] != probe.DP_B:
+            continue
+        H = r["plane_shape"][0]
+        if r["residence"] == "reg":
+            at_h[H] = max(at_h.get(H, 0.0), r["ops_per_s"])
+        else:
+            smem = max(smem, r["bytes_per_s"])
+    if not at_h or not smem:
+        fail("the probe measured no reg or no smem int32 rate at B=%d"
+             % probe.DP_B)
+    return {"int32_at": at_h, "int32": max(at_h.values()), "smem": smem}
+
+
+def probe_shapes():
+    """Every (residence, case, dpx, H, B, smem_bytes) that phase 3 holds
+    against the plain version: each run path (p) times, then the TPU's H
+    at B = 262,144."""
+    shapes = probe.runs()
+    for case, (dep, H, _dtype) in CASES.items():
+        for res in probe.RESIDENCES:
+            for dpx in ((False, True) if dep else (False,)):
+                shapes.append((res, case, dpx, H, probe.DP_B,
+                               probe_cuda.smem_need(case, H)
+                               if res == "smem" else 0))
+    return shapes
+
+
+def probe_check(label, got, case, H, plain, errs):
+    """Hold one probe output against the plain version at the TPU's K and
+    U (computed once a (case, H, B), kept in ``plain``); fails on any
+    difference and returns row 0."""
+    key = (case, H, got.shape[0])
+    if key not in plain:
+        plain[key] = plane_probe_plain(case, H, key[2], TPU_K, TPU_U,
+                                       device=got.device)
+    want = plain[key]
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    errs["plane_probe"] = max(errs["plane_probe"], err)
+    if err:
+        fail("%s: differs from the plain version (%d)" % (label, err))
+    return int(want[0])
+
+
+def probe_checks(dev, errs, plain):
+    """Every probe variant on the card equal to the plain version
+    (tolerance 0) at each shape of :func:`probe_shapes`, K and U the
+    TPU's.  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    for res, case, dpx, H, B, smem in probe_shapes():
+        got = probe_cuda.plane_probe(
+            case, torch.empty(B, dtype=CASES[case][2], device=dev), H=H,
+            K=TPU_K, U=TPU_U, residence=res, dpx=dpx, smem_bytes=smem)
+        label = "P %s %s [%d x %d]%s" % (
+            res, probe.variant_name(case, dpx), H, B,
+            " %d B a block" % smem if smem else "")
+        row0 = probe_check(label, got, case, H, plain, errs)
+        print("  %-52s equal, max_abs_err=0 (row 0 = %d)" % (label, row0),
+              flush=True)
+    return time.perf_counter() - t0
 
 
 def run_main_path(data, cfg, engines, arena):
@@ -429,6 +535,7 @@ def pipeline_report(data, chain):
 
 
 def main():
+    t_main = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -449,16 +556,39 @@ def main():
     card = "%s, %s" % (name, smi.split(",")[-1].strip())
     clock_hz = clock_mhz * 1e6
 
-    # 2. build
+    # 2. build: the paths' library and the probe's, all nvcc at once
     t0 = time.perf_counter()
-    so = _build.build()
+
+    def timed_build(args):
+        so_ = _build.build(*args)
+        return so_, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as ex:
+        (so, so_s), (so_p, so_p_s) = ex.map(timed_build, [
+            (), (_build.PROBE_SOURCES, _build.PROBE_LIB_NAME)])
     _build.library()
-    print("[2 build] %.1f s -> %s" % (time.perf_counter() - t0,
-                                      os.path.relpath(so)), flush=True)
+    _build.probe_library()
+    print("[2 build] %.1f s -> %s; probe %.1f s -> %s"
+          % (so_s, os.path.relpath(so), so_p_s, os.path.relpath(so_p)),
+          flush=True)
+    # per kernel: registers and spills; the probe's 72 instantiations
+    # (6 H x 6 variants x 2 residences) in one summary line
     with open(os.path.join(os.path.dirname(so), "build.log")) as fh:
         for line in fh:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.rstrip(), flush=True)
+    probe_regs, probe_spill = [], 0
+    with open(os.path.join(os.path.dirname(so_p), "build.log")) as fh:
+        for line in fh:
+            if "registers" in line:
+                probe_regs.append(int(line.split("Used ")[1].split()[0]))
+            elif "spill" in line:
+                probe_spill += sum(int(w) for w in line.split()
+                                   if w.isdigit())
+    print("  plane_probe.cu: %d kernels, %d-%d registers, %d bytes of stack "
+          "and spills in all" % (len(probe_regs), min(probe_regs, default=0),
+                                 max(probe_regs, default=0), probe_spill),
+          flush=True)
 
     # 3. kernels vs plain, on the card
     cfg = PipelineConfig()
@@ -623,6 +753,12 @@ def main():
                        stats_cuda.stats_hist(s_b, s_q, s_l)):
         fail("K5b and K5 differ on the headline chunk")
 
+    # P: every probe variant at every shape path (p) times, and at the
+    # TPU's H with B = 262,144
+    p_plain = {}
+    p_s = probe_checks(dev, errs, p_plain)
+    print("  (P checks: %.1f s)" % p_s, flush=True)
+
     # 4. paths, each against a host reference that never touches a kernel
     launches = {}
     path_s = {}
@@ -762,6 +898,55 @@ def main():
     print("  (d) outputs equal the host engine's on both lanes and formats",
           flush=True)
 
+    # (p) the probe's entry point (python -m fastx_toolkit_tpu_torch.probe)
+    # with a budget of 15 s; its int32 and shared-memory rates give the
+    # bounds of phase 5
+    reset_counters()
+    t0 = time.perf_counter()
+    p_lines = []
+    p_results, p_sass = probe.measure(dev, budget_s=15.0, card_name=smi,
+                                      emit=p_lines.append)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches["p"] = counters()
+    p_file = os.path.join(os.path.dirname(so_p), "probe.jsonl")
+    with open(p_file, "w") as fh:
+        fh.write("\n".join(p_lines) + "\n")
+        for key, rep_ in sorted(p_sass.items()):
+            fh.write(json.dumps({"sass": list(key), **rep_}) + "\n")
+    print("  (p) probe: %d runs in %.1f s, launches %s (lines in %s)"
+          % (len(p_results), probe_s, launches["p"], os.path.relpath(p_file)),
+          flush=True)
+    for r in p_results:
+        print("    %-36s %-13s %9.3f ms  %.4g op/s%s  SASS/op %s" % (
+            r["metric"], r["plane_shape"], r["ms"], r["ops_per_s"],
+            "  %.4g B/s" % r["bytes_per_s"] if r["bytes_per_s"] else "",
+            "n/a" if r["sass_instr_per_op"] is None
+            else "%.3f" % r["sass_instr_per_op"]), flush=True)
+    if launches["p"]["plane_probe"] <= 0 or any(
+            v for k, v in launches["p"].items() if k != "plane_probe"):
+        fail("path (p): expected probe launches only (%s)" % launches["p"])
+    # after the counters are read: each timed run's output against the
+    # plain version at the same case, H and B
+    for r in p_results:
+        probe_check("(p) %s %s" % (r["metric"], r["plane_shape"]), r["out"],
+                    r["case"], r["plane_shape"][0], p_plain, errs)
+    print("  (p) every timed run's output equals the plain version (%d "
+          "runs, max_abs_err %d)" % (len(p_results), errs["plane_probe"]),
+          flush=True)
+    for r in p_results:
+        if r["residence"] == "smem" and r["sass_lds_per_op"] is not None \
+                and (r["sass_lds_per_op"] < 1 or r["sass_sts_per_op"] < 1):
+            fail("%s: the SASS shows fewer than one shared load and store a "
+                 "plane op: the plane was kept in registers" % r["metric"])
+    rates = probe_rates(p_results)
+    print("  P's best rates: int32 (reg) %s op/s, at H %s; smem "
+          "(read+write) %.4g B/s on %s" % (
+              "%.4g" % rates["int32"],
+              ", ".join("%d: %.4g" % kv for kv in sorted(
+                  rates["int32_at"].items())), rates["smem"], card),
+          flush=True)
+
     # 5. times
     times = []
     for it in range(3):
@@ -845,26 +1030,63 @@ def main():
     for k in ("stats_hist", "stats_hist_b2"):
         library[k] = cuda_ms(
             lambda: torch.bincount(flat, minlength=minlength), 10)
-    ms, plain_ms, bound = {}, {}, {}
+    # P: its timed variant from the probe's own run, the plain version at
+    # the same shape; its plane ops (one instruction each in its SASS)
+    res_, case_, dpx_, h_, b_ = PROBE_TIMED
+    timed = [r for r in p_results if (r["residence"], r["case"], r["dpx"],
+                                      *r["plane_shape"]) == PROBE_TIMED]
+    if not timed:
+        fail("the probe's run did not reach its timed variant %s"
+             % (PROBE_TIMED,))
+    shapes["plane_probe"] = (
+        None, lambda: plane_probe_plain(case_, h_, b_, TPU_K, TPU_U,
+                                        device=dev),
+        plane_ops(TPU_K, TPU_U) * h_ * b_, 4 * b_,
+        "%s %s [%d x %d], K=%d, U=%d" % (res_, probe.variant_name(case_, dpx_),
+                                         h_, b_, TPU_K, TPU_U))
+    library["plane_probe"] = None
+    # the readings beside the bound: each kernel's H (for P's reg rate)
+    # and its row state's shared-memory bytes (cells x words a cell x 4 B)
+    cells_k3 = int(lens_k3.sum()) * len(TRUSEQ)
+    cells_k4 = int(rna_l.clamp(max=rna_b.shape[1]).sum()) * len(SMALL_RNA)
+    at_h = {"align_packed12": len(adapter), "align_packed": len(TRUSEQ),
+            "align_unpacked": len(SMALL_RNA), "plane_probe": h_}
+    smem_state = {"align_packed": cells_k3 * K3_SMEM_WORDS_PER_CELL * 4}
+    if len(SMALL_RNA) <= K4_SMEM_MAX_H:
+        smem_state["align_unpacked"] = cells_k4 * K4_SMEM_WORDS_PER_CELL * 4
+    ms, plain_ms, bound, old_bound, p_rate, smem_ms = ({} for _ in range(6))
     for k, (fn, plain, ops, nbytes, shape) in shapes.items():
-        ms[k] = cuda_ms(fn, 10)
-        plain_ms[k] = cuda_ms(plain, 2)
-        bound[k] = dp_bound(ops, nbytes, clock_hz)
+        ms[k] = timed[0]["ms"] if fn is None else cuda_ms(fn, 10)
+        plain_ms[k] = cuda_ms(plain, 1 if fn is None else 2)
+        bound[k] = roofline(ops, nbytes, ISSUE_LANES * clock_hz)
+        old_bound[k] = roofline(ops, nbytes, INT32_LANES * clock_hz)
+        p_rate[k] = ops / rates["int32_at"].get(at_h.get(k),
+                                                 rates["int32"]) * 1e3
+        smem_ms[k] = (smem_state[k] / rates["smem"] * 1e3
+                      if k in smem_state else None)
         print("  %-15s %.3f ms (plain torch %.3f ms; library %s; bound "
-              "%.4f ms by %s) at %s on %s"
+              "%.4f ms by %s at the int32 issue rate and 3.35 TB/s; "
+              "readings: int32 ops at P's best reg rate %.4f ms, row-state "
+              "shared memory at P's smem rate %s, assumed-peak bound %.4f "
+              "ms by %s) at %s on %s"
               % (k, ms[k], plain_ms[k],
                  "n/a" if library[k] is None
                  else "torch.bincount %.3f ms" % library[k],
-                 bound[k][0], bound[k][1], shape, card), flush=True)
+                 bound[k][0], bound[k][1], p_rate[k],
+                 "n/a" if smem_ms[k] is None else "%.4f ms" % smem_ms[k],
+                 old_bound[k][0], old_bound[k][1], shape, card), flush=True)
 
     # 6. kernels
+    print("[6 done] %.1f s in all" % (time.perf_counter() - t_main),
+          flush=True)
     total = {k: sum(ln[k] for ln in launches.values()) for k in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": META[k][0],
          "replaces": META[k][1], "launches": total[k],
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
-         "library_ms": library[k]}
+         "library_ms": library[k], "assumed_bound_ms": old_bound[k][0],
+         "p_rate_ms": p_rate[k], "smem_state_ms": smem_ms[k]}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ card.
 Counterpart of ``fastx_toolkit_tpu/cli/tools/fastx_clipper.py`` (FASTX-
 Toolkit's ``fastx_clipper.cpp``): every flag, the legacy stale-matrix
 emulation with its carry across batches (``ops/clipper.
-legacy_effective_query``), ``-D``/``-DD``, the float32 re-decision of
+legacy_effective_query``; ``FASTX_TPU_CLIPPER_CLEAN=1`` aligns each read's
+own bases instead), ``-D``/``-DD``, the float32 re-decision of
 tie-fragile reads and the ``-v`` report, byte for byte.  Each batch runs
 ``ops/clipper.clip_batch`` on the device ``FASTX_TORCH_DEVICE`` names
 (default ``cuda``), whose DP is K4 (``csrc/align_unpacked.cu``).
@@ -100,8 +101,10 @@ def tool_main(ctx: CliContext, argv) -> int:
     if keep_delta > 0:
         keep_delta += len(st["adapter"])
 
-    # emulate the reference's grow-only matrix / stale query buffer
-    # exactly (see ops.clipper.legacy_effective_query)
+    # default: emulate the reference's grow-only matrix / stale query
+    # buffer exactly (see ops.clipper.legacy_effective_query); set
+    # FASTX_TPU_CLIPPER_CLEAN=1 for independent-read semantics
+    legacy = not os.environ.get("FASTX_TPU_CLIPPER_CLEAN")
     carry = None
 
     reader = _shared.BatchReader(ctx, args, filetype=codec.FASTA_OR_FASTQ)
@@ -120,19 +123,26 @@ def tool_main(ctx: CliContext, argv) -> int:
                     ctx.stdout_text.write(align_dbg.format_matrix(seq, adapter_b))
                 ctx.stdout_text.write(align_dbg.format_results(seq, adapter_b))
 
-        eff, widths, carry = clipper.legacy_effective_query(
-            np.asarray(batch.bases), np.asarray(batch.lengths), carry
-        )
+        eff = None
+        if legacy:
+            eff, widths, carry = clipper.legacy_effective_query(
+                np.asarray(batch.bases), np.asarray(batch.lengths), carry
+            )
         nb = len(batch)
-        ll = padded_width(max(batch.width, eff.shape[1], 1))
+        ll = padded_width(max(batch.width,
+                              eff.shape[1] if eff is not None else 0, 1))
         bases = np.zeros((nb, ll), np.uint8)
         bases[:, : batch.width] = batch.bases
         quals = np.zeros((nb, ll), np.int8)
         quals[:, : batch.width] = batch.quals
         lengths = np.array(batch.lengths, np.int32)
-        effp = np.zeros((nb, ll), np.uint8)
-        effp[:, : eff.shape[1]] = eff
-        widthsp = np.array(widths, np.int32)
+        # the DP's view of the reads: the legacy emulation's, else their own
+        align = {}
+        if legacy:
+            effp = np.zeros((nb, ll), np.uint8)
+            effp[:, : eff.shape[1]] = eff
+            align = {"align_bases": effp,
+                     "align_lengths": np.array(widths, np.int32)}
         flags = dict(
             adapter=st["adapter"].encode(),
             min_length=st["min_length"],
@@ -143,10 +153,11 @@ def tool_main(ctx: CliContext, argv) -> int:
             show_adapter_only=st["show_adapter_only"],
             min_adapter_len=st["min_adapter"],
         )
-        bt, qt, lt, et, wt = (torch.from_numpy(a).to(device)
-                              for a in (bases, quals, lengths, effp, widthsp))
-        res = clipper.clip_batch(bt, qt, lt, **flags, align_bases=et,
-                                 align_lengths=wt, tie_flag=tie_fix)
+        bt, qt, lt = (torch.from_numpy(a).to(device)
+                      for a in (bases, quals, lengths))
+        res = clipper.clip_batch(
+            bt, qt, lt, **flags, tie_flag=tie_fix,
+            **{k: torch.from_numpy(a).to(device) for k, a in align.items()})
         b2, q2, l2, write, cat = (t.cpu().numpy() for t in res[:5])
         l2 = l2.copy()
         write = write.copy()
@@ -159,7 +170,7 @@ def tool_main(ctx: CliContext, argv) -> int:
                 idx = np.nonzero(frag)[0]
                 fl, fwr, fc = hostfix.clip_decide_np(
                     bases[idx], lengths[idx], **flags,
-                    align_bases=effp[idx], align_lengths=widthsp[idx],
+                    **{k: a[idx] for k, a in align.items()},
                 )
                 l2[idx] = fl
                 write[idx] = fwr

@@ -8,7 +8,8 @@ the reference's traced step as an eager torch function.  The tool runs
 on the device ``FASTX_TORCH_DEVICE`` names (default ``cuda``):
 
 * FASTQ chains that map onto the fused configuration, without ``-v``,
-  stream through the raw-line engine (``engine/lines.py``);
+  stream through the raw-line engine (``engine/lines.py``), unless
+  ``FASTX_TPU_NO_LINEPATH`` is set;
 * everything else — ``-v`` (per-stage counts), FASTA input, stages out of
   the canonical order, clipper ``-d/-c/-C/-k/-M``,
   ``fastx_reverse_complement``, ``fasta_nucleotide_changer`` — runs the
@@ -439,7 +440,8 @@ def tool_main(ctx: CliContext, argv) -> int:
         # the raw-line engine takes fused-supported FASTQ chains; -v needs
         # per-stage counts that only the classic per-batch loop tallies
         mapped = None
-        if reader.is_fastq and not args.verbose and native.LIB is not None:
+        if (reader.is_fastq and not args.verbose and native.LIB is not None
+                and not os.environ.get("FASTX_TPU_NO_LINEPATH")):
             mapped = chain_to_config(cfgs)
         if mapped is not None:
             eng_cfg, eng_out_fastq = mapped

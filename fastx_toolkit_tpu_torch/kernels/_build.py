@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together), linked into one shared
-library with a plain C interface, and loaded with ctypes.  The library
-lands in ``fastx_toolkit_tpu_torch/_build/<hash>/``, keyed on the
-sources' and flags' hash, and is built at first use: importing this
-module compiles nothing.  The compiler's output (``-Xptxas -v``:
-registers, spills) is kept beside it in ``build.log``.
+The ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together) and linked into two shared
+libraries with a plain C interface, loaded with ctypes: the kernels of
+the CLIs' paths (:data:`SOURCES`, :func:`library`) and the plane-op
+probe (:data:`PROBE_SOURCES`, :func:`probe_library`), whose many
+template instantiations no CLI should wait for.  Each library lands in
+``fastx_toolkit_tpu_torch/_build/<hash>/``, keyed on its sources' and
+the flags' hash, and is built at first use: importing this module
+compiles nothing.  The compiler's output (``-Xptxas -v``: registers,
+spills) is kept beside it in ``build.log``.
 """
 
 from __future__ import annotations
@@ -24,12 +27,15 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("align_packed12.cu", "align_packed.cu", "align_unpacked.cu",
            "packed_counts.cu", "stats_hist.cu")
+PROBE_SOURCES = ("plane_probe.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfastx_torch_kernels.so"
+PROBE_LIB_NAME = "libfastx_torch_probe.so"
 
 _lock = threading.Lock()
 _lib = None
+_probe_lib = None
 
 
 def nvcc() -> str:
@@ -49,20 +55,21 @@ def nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build_key() -> str:
+def build_key(sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         with open(os.path.join(SRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the library unless an identical build exists; returns its
-    path.  Raises RuntimeError with the compiler's output on failure."""
-    out_dir = os.path.join(BUILD_DIR, build_key())
-    so = os.path.join(out_dir, LIB_NAME)
+def build(sources=SOURCES, lib_name=LIB_NAME) -> str:
+    """Compile ``sources`` into ``lib_name`` unless an identical build
+    exists; returns its path.  Raises RuntimeError with the compiler's
+    output on failure."""
+    out_dir = os.path.join(BUILD_DIR, build_key(sources))
+    so = os.path.join(out_dir, lib_name)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -70,7 +77,7 @@ def build() -> str:
     tmp = tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR)
     try:
         procs = []
-        for name in SOURCES:
+        for name in sources:
             obj = os.path.join(tmp, name + ".o")
             cmd = [exe, *NVCC_FLAGS, "-c", os.path.join(SRC_DIR, name),
                    "-o", obj]
@@ -87,7 +94,7 @@ def build() -> str:
             raise RuntimeError("nvcc failed on %s:\n%s"
                                % (", ".join(failed), "\n".join(log)))
         link = subprocess.run(
-            [exe, "-shared", "-o", os.path.join(tmp, LIB_NAME),
+            [exe, "-shared", "-o", os.path.join(tmp, lib_name),
              *[obj for _n, obj, _p in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if link.returncode != 0:
@@ -133,6 +140,19 @@ def library() -> ctypes.CDLL:
             lib.fx_stats_hist.restype = ci
             _lib = lib
     return _lib
+
+
+def probe_library() -> ctypes.CDLL:
+    """The loaded probe library (built on first call)."""
+    global _probe_lib
+    with _lock:
+        if _probe_lib is None:
+            lib = ctypes.CDLL(build(PROBE_SOURCES, PROBE_LIB_NAME))
+            lib.fx_plane_probe.argtypes = ([ctypes.c_int] * 9
+                                           + [ctypes.c_void_p] * 2)
+            lib.fx_plane_probe.restype = ctypes.c_int
+            _probe_lib = lib
+    return _probe_lib
 
 
 def check(status: int, what: str) -> None:

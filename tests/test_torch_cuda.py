@@ -396,3 +396,48 @@ def test_stats_cli_on_card_matches_cpu(dev, argv, monkeypatch):
     host = _cli_run(fastx_quality_stats, argv, data, "cpu", monkeypatch)
     assert got == want == host and want[0] == 0
     assert launched >= 4  # the default engine on a card is the device
+
+
+@pytest.mark.parametrize("residence", ["reg", "smem"])
+@pytest.mark.parametrize("case,dpx", [
+    ("dependent", False), ("dependent", True), ("independent", False),
+    ("dependent_i16", False), ("dependent_i16", True),
+    ("independent_i16", False)])
+def test_plane_probe_matches_plain_on_card(dev, residence, case, dpx):
+    """Every probe variant at every H the kernel is built for (ragged B),
+    and at the TPU's shape with its K and U (the int16 chains wrap)."""
+    from fastx_toolkit_tpu_torch.kernels import probe_cuda
+    from fastx_toolkit_tpu_torch.kernels.probe import (
+        CASES,
+        TPU_B,
+        TPU_K,
+        TPU_U,
+        plane_probe_plain,
+    )
+
+    _dep, h_tpu, dtype = CASES[case]
+    before = probe_cuda.launches
+    shapes = [(H, 1000, 3, 64) for H in probe_cuda.H_SET]
+    shapes.append((h_tpu, TPU_B, TPU_K, TPU_U))
+    for H, B, K, U in shapes:
+        got = probe_cuda.plane_probe(
+            case, torch.empty(B, dtype=dtype, device=dev), H=H, K=K, U=U,
+            residence=residence, dpx=dpx)
+        want = plane_probe_plain(case, H, B, K, U, device=dev)
+        assert torch.equal(got, want), (H, B, K, U)
+    assert probe_cuda.launches - before == len(shapes)
+
+
+def test_plane_probe_cuda_output_is_checked_not_routed_to_plain(dev):
+    from fastx_toolkit_tpu_torch.kernels import probe_cuda
+
+    before = probe_cuda.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_cuda.plane_probe("dependent",
+                               torch.empty(64, dtype=torch.int16, device=dev),
+                               H=24, K=1, U=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_cuda.plane_probe(
+            "dependent", torch.empty(128, dtype=torch.int32, device=dev)[::2],
+            H=24, K=1, U=16)
+    assert probe_cuda.launches == before

@@ -130,6 +130,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
                                                 "fastx_toolkit_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 20
+    pkg = os.path.join(ROOT, "fastx_toolkit_tpu_torch")
+    assert {os.path.join(pkg, "probe.py"),
+            os.path.join(pkg, "kernels", "probe.py"),
+            os.path.join(pkg, "kernels", "probe_cuda.py")} <= set(paths)
     found = {p: _forbidden_imports(p) for p in paths}
     assert not {p: b for p, b in found.items() if b}
 
