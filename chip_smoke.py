@@ -12,14 +12,20 @@ of the JAX package:
    limit (``nvidia-smi --query-gpu=name,power.limit``);
 2. build   — compiles the CUDA kernels from ``fastx_toolkit_tpu_torch/csrc``
    with nvcc, the paths' library and the probe's at once, and prints the
-   build seconds and the compiler's register / spill report;
+   build seconds, the compiler's register / spill report and K3's SASS
+   instructions a DP cell (its hot loop in ``cuobjdump --dump-sass``);
 3. kernels — every kernel against its plain torch version on the card,
    every output field equal (tolerance 0: integer results):
    K1 (packed adapter DP) and K2 (packed counts) on the first 262,144
    reads of the headline lane, on the no-N-plane shortcut and on
    adversarial batches at H=31 and L=511; K3 (wide packed DP) on the
    first 262,144 reads of a 1M x 150 bp lane spiked with the 33-base
-   TruSeq adapter, on its no-N-plane shortcut and at H=72, L=600; K4
+   TruSeq adapter, on its no-N-plane shortcut and at H=72, L=600, and at
+   each edge of its lane groups (9 adapter rows a lane): H = 1, 9, 10,
+   18, 19, 31, 32, 33, 36, 37, 64, 72 on 1,001 reads (L = 600 below H =
+   32, where K1 takes L <= 511, else 150) with lengths 0, 1, below the
+   lane count and L among them, and 256 reads of L = 4,000, each with and
+   without the N plane and the flags; K4
    (unpacked DP) on the first 262,144 reads of the 1M x 50 bp small-RNA
    lane, on its legacy-effective bases, at H=99 with lowercase and U
    bytes (L=300), and at B=1 and B=300; K5 (quality-stats histogram) on
@@ -27,8 +33,9 @@ of the JAX package:
    lane (L=160), on a batch of one quality value, on bytes outside ACGTN
    with qualities below -15 and above 93, at B=1, B=300 and L=301; K5b
    (its 2-bit mode) on the headline reads; in phase 4, K4 again on the
-   inputs of every launch that paths (a) and (c) made, and K5 on those
-   of path (d) (kept as device copies during the run), so each is held
+   inputs of every launch that paths (a) and (c) made, K3 on those of
+   path (b) and K5 on those of path (d) (kept as device copies during the
+   run), so each is held
    against its plain version at each shape a path gives it; P (the
    plane-op probe, ``csrc/plane_probe.cu``) in every variant (``reg`` and
    ``smem``, the four TPU cases, DPX for the dependent two) at every shape
@@ -69,9 +76,9 @@ of the JAX package:
    ``reg`` runs pass the 64 INT32 lanes an SM, so the issue rate is the
    ceiling); beside it, as readings and not as the bound: the same
    operations at the best ``reg`` int32 rate P reached at the kernel's H
-   (``p_rate_ms``), for K3 and K4 the shared-memory bytes their current
-   row state moves over the best ``smem`` rate P reached
-   (``smem_state_ms``), and the bound from the assumed INT32-lane peak
+   (``p_rate_ms``), for K4 the shared-memory bytes its row state moves
+   over the best ``smem`` rate P reached (``smem_state_ms``; K3 keeps its
+   rows in registers), and the bound from the assumed INT32-lane peak
    (SMs x 64 lanes x the max SM clock; ``assumed_bound_ms``); P's own
    entry is its ``reg`` dependent int32 run at [33 x 262,144] beside its
    plain version, bound the same way;
@@ -86,6 +93,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -184,14 +192,15 @@ INT32_LANES = 132 * 64     # SMs x INT32 lanes (the assumed peak)
 # compiler spreading int32 adds over the INT32 and FMA pipes, past the
 # INT32 lanes' rate): the bounds' operation term
 ISSUE_LANES = 132 * 4 * 32
-# shared-memory words a DP cell reads and writes in the current designs,
-# from the sources: K3 loads and stores row y's score, W1 and W2
-# (csrc/align_packed.cu); K4 its 7 Cell words (csrc/align_unpacked.cu, in
-# shared memory while H <= 54); K1 keeps its row state in registers.  A
-# reading beside the bound: the alignment itself does not need it
-K3_SMEM_WORDS_PER_CELL = 6
+# shared-memory words a DP cell reads and writes in K4's design, from the
+# source: its 7 Cell words (csrc/align_unpacked.cu, in shared memory while
+# H <= 54); K1 and K3 keep their row state in registers.  A reading beside
+# the bound: the alignment itself does not need it
 K4_SMEM_WORDS_PER_CELL = 14
 K4_SMEM_MAX_H = 54
+# K3's checks at the edges of its lane groups (9 rows a lane): H at 1, k,
+# k + 1, 2k, 2k + 1, 31-33, 4k, 4k + 1, 64 and 72
+K3_EDGE_H = (1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72)
 # the probe's timed variant in the kernels line: the dependent int32 chain
 # in registers at K3's TruSeq shape
 PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
@@ -287,39 +296,57 @@ def compare(name, got, want, fields):
 
 
 @contextlib.contextmanager
-def k4_launch_inputs():
-    """Keep a device copy of the inputs of every K4 launch made inside the
-    block (a path run's own launches, at the path's shapes), so that each
-    can be held against the plain version after the run."""
+def launch_inputs(module, keep=lambda *args: True):
+    """Keep a device copy of the inputs of every ``module._launch`` call
+    made inside the block for which ``keep(*args)`` holds (a path run's
+    own launches, at the path's shapes), so that each can be held against
+    the plain version after the run."""
     seen = []
-    launch = align_unpacked_cuda._launch
+    launch = module._launch
 
-    def keep(bases, lengths, adapter, tie_flag):
-        seen.append((bases.clone(), lengths.clone(), adapter, tie_flag))
-        return launch(bases, lengths, adapter, tie_flag)
+    def kept(*args):
+        if keep(*args):
+            seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args))
+        return launch(*args)
 
-    align_unpacked_cuda._launch = keep
+    module._launch = kept
     try:
         yield seen
     finally:
-        align_unpacked_cuda._launch = launch
+        module._launch = launch
 
 
-@contextlib.contextmanager
-def k5_launch_inputs():
-    """As :func:`k4_launch_inputs`, for the K5/K5b launches."""
-    seen = []
-    launch = stats_cuda._launch
+def k3_launch(_b2w, _nmw, _lengths, codes, L, _tie_flag):
+    """True for the packed launcher's K3 launches (outside K1's gate)."""
+    return not align_cuda.packed12_ok(L, len(codes))
 
-    def keep(b2_mode, codes, quals, lengths):
-        seen.append((b2_mode, codes.clone(), quals.clone(), lengths.clone()))
-        return launch(b2_mode, codes, quals, lengths)
 
-    stats_cuda._launch = keep
-    try:
-        yield seen
-    finally:
-        stats_cuda._launch = launch
+# K3's kernels in csrc/align_packed.cu: align_packed_kernel<HAS_NM, TIE, G>
+_K3_KERNEL = re.compile(r"align_packed_kernelILb([01])ELb([01])ELi(\d+)EE")
+
+
+def k3_sass_report(obj=None):
+    """``{(has_nm, tie, G): {"instr_per_cell", "cells", "instr", "ops"}}``
+    for K3's hot loop in ``obj`` (default: the paths' built library's
+    ``align_packed.cu.o``), read with ``cuobjdump --dump-sass``.  A pass of
+    the step loop is ``K3_ROWS`` cells of one lane.  Static counts: every
+    instruction of the loop body once, whichever branch a lane takes.
+    Empty when cuobjdump or the object is missing."""
+    if obj is None:
+        obj = os.path.join(_build.BUILD_DIR, _build.build_key(),
+                           "align_packed.cu.o")
+    report = {}
+    for name, body in probe.sass_functions(obj).items():
+        m = _K3_KERNEL.search(name)
+        hist = probe._hot_loop(body) if m else None
+        if not hist:
+            continue
+        n = sum(hist.values())
+        report[(m.group(1) == "1", m.group(2) == "1", int(m.group(3)))] = {
+            "instr_per_cell": n / align_cuda.K3_ROWS,
+            "cells": align_cuda.K3_ROWS, "instr": n, "ops": hist}
+    return report
 
 
 def stats_chunk(data):
@@ -589,6 +616,15 @@ def main():
           "and spills in all" % (len(probe_regs), min(probe_regs, default=0),
                                  max(probe_regs, default=0), probe_spill),
           flush=True)
+    # K3's hot loop: SASS instructions a DP cell, per instantiation
+    k3_sass = k3_sass_report()
+    for (nm_, tie_, g_), r_ in sorted(k3_sass.items()):
+        print("  align_packed.cu HAS_NM=%d TIE=%d G=%d: %d SASS instructions "
+              "a step of %d cells, %.2f a cell" % (
+                  nm_, tie_, g_, r_["instr"], r_["cells"],
+                  r_["instr_per_cell"]), flush=True)
+    k3_cell_instr = k3_sass.get((True, True, align_cuda.k3_lanes(len(TRUSEQ))),
+                                {}).get("instr_per_cell")
 
     # 3. kernels vs plain, on the card
     cfg = PipelineConfig()
@@ -604,15 +640,16 @@ def main():
              len(data_rna), time.perf_counter() - t0), flush=True)
     errs = dict.fromkeys(KERNELS, 0)
 
-    def k_packed_check(label, b2w_, nmw_, l_, adapter_, L_):
+    def k_packed_check(label, b2w_, nmw_, l_, adapter_, L_, tie_flag=True):
         got = align_cuda.align_batch_packed(b2w_, nmw_, l_, adapter_, L=L_,
-                                            tie_flag=True)
+                                            tie_flag=tie_flag)
         want = align_cuda.align_batch_packed_plain(b2w_, nmw_, l_, adapter_,
-                                                   L=L_, tie_flag=True)
+                                                   L=L_, tie_flag=tie_flag)
         torch.cuda.synchronize()
         k = ("align_packed12" if align_cuda.packed12_ok(L_, len(adapter_))
              else "align_packed")
-        errs[k] = max(errs[k], compare(label, got, want, FIELDS))
+        errs[k] = max(errs[k], compare(label, got, want,
+                                       FIELDS if tie_flag else FIELDS[:8]))
         return got
 
     def k2_check(label, b2w_, nmw_, l_):
@@ -699,6 +736,21 @@ def main():
     a_b2w, a_nmw, a_l = packed(*adversarial(rng, 2048, 600, h72, 0.05), dev)
     k_packed_check("K3 adversarial H=72 L=600", a_b2w, a_nmw, a_l, h72, 600)
     k_packed_check("K3 adversarial H=17 L=600", a_b2w, a_nmw, a_l, adapter, 600)
+    # K3 at the edges of its lane groups, ragged B, lengths 0, 1, below the
+    # lane count and L, and one long-read batch; each with and without the
+    # N plane and the flags
+    edge = [(H_, (b"ACGTN" + TRUSEQ * 3)[:H_] if H_ % 2 else (TRUSEQ * 3)[:H_],
+             600 if H_ < 32 else 150, 1001) for H_ in K3_EDGE_H]
+    edge.append((len(TRUSEQ), TRUSEQ, 4000, 256))
+    for H_, ad_, L_, B_ in edge:
+        e_b2w, e_nmw, e_l = packed(*adversarial(rng, B_, L_, ad_, 0.05), dev)
+        e_l[:4] = torch.tensor([0, 1, max(0, align_cuda.k3_lanes(H_) - 1), L_])
+        for nm_ in (e_nmw, None):
+            for tie_ in (True, False):
+                k_packed_check("K3 edge H=%d L=%d B=%d%s%s" % (
+                    H_, L_, B_, "" if nm_ is None else " N plane",
+                    " flags" if tie_ else ""), e_b2w, nm_, e_l, ad_, L_,
+                    tie_flag=tie_)
 
     # K4 on the small-RNA lane's first chunk: ASCII, then the legacy
     # emulation's effective bases and running-max widths
@@ -791,7 +843,7 @@ def main():
         fail("stream_pipeline_lines output differs from the host reference")
 
     # (a) the standalone clipper on the small-RNA lane
-    with k4_launch_inputs() as seen_a:
+    with launch_inputs(align_unpacked_cuda) as seen_a:
         status, got, rep, path_s["a"], ln = run_cli(
             fastx_clipper, "fastx_clipper", CLIPPER_ARGV, data_rna)
     launches["a"] = ln
@@ -815,8 +867,9 @@ def main():
 
     # (b) the headline chain with the 33-base TruSeq adapter
     chain_b = HEADLINE.replace(cfg.adapter.decode(), TRUSEQ.decode())
-    status, got, _rep, path_s["b"], ln = run_cli(
-        fastx_pipeline, "fastx_pipeline", ["-Q", "33", chain_b], data_ts)
+    with launch_inputs(align_cuda, k3_launch) as seen_b:
+        status, got, _rep, path_s["b"], ln = run_cli(
+            fastx_pipeline, "fastx_pipeline", ["-Q", "33", chain_b], data_ts)
     launches["b"] = ln
     t0 = time.perf_counter()
     want_b, kept_b = host_reference(data_ts, cfg_ts)
@@ -831,9 +884,23 @@ def main():
     if ln["align_packed"] <= 0 or ln["packed_counts"] <= 0 \
             or ln["align_packed12"] != 0:
         fail("path (b): expected K3 and K2 launches and no K1 (%s)" % ln)
+    # after the counters are read: each K3 launch against the plain version
+    if len(seen_b) != ln["align_packed"]:
+        fail("path (b): %d K3 launches counted, %d kept"
+             % (ln["align_packed"], len(seen_b)))
+    for i, (bw_, nw_, l_, codes_, L_, tie_) in enumerate(seen_b):
+        got_ = align_cuda._launch(bw_, nw_, l_, codes_, L_, tie_)
+        want_ = align_cuda.align_batch_packed_plain(
+            bw_, nw_, l_, TRUSEQ, L=L_, tie_flag=tie_)
+        torch.cuda.synchronize()
+        errs["align_packed"] = max(errs["align_packed"], compare(
+            "K3 path (b) launch %d [%d x %d]%s" % (
+                i, bw_.shape[1], L_, " flags" if tie_ else ""),
+            got_, want_, FIELDS if tie_ else FIELDS[:8]))
+    del seen_b
 
     # (c) -v: the classic per-batch loop on the headline lane
-    with k4_launch_inputs() as seen_c:
+    with launch_inputs(align_unpacked_cuda) as seen_c:
         status, got, rep, path_s["c"], ln = run_cli(
             fastx_pipeline, "fastx_pipeline", ["-v", "-Q", "33", HEADLINE],
             data)
@@ -864,7 +931,7 @@ def main():
         for argv in (["-Q", "33"], ["-Q", "33", "-N"]):
             label = "(d) fastx_quality_stats %s, %s lane" % (" ".join(argv),
                                                              lane)
-            with k5_launch_inputs() as seen_d:
+            with launch_inputs(stats_cuda) as seen_d:
                 status, got, _rep, dev_s, ln = run_cli(
                     fastx_quality_stats, "fastx_quality_stats", argv,
                     lane_data)
@@ -1047,11 +1114,10 @@ def main():
     library["plane_probe"] = None
     # the readings beside the bound: each kernel's H (for P's reg rate)
     # and its row state's shared-memory bytes (cells x words a cell x 4 B)
-    cells_k3 = int(lens_k3.sum()) * len(TRUSEQ)
     cells_k4 = int(rna_l.clamp(max=rna_b.shape[1]).sum()) * len(SMALL_RNA)
     at_h = {"align_packed12": len(adapter), "align_packed": len(TRUSEQ),
             "align_unpacked": len(SMALL_RNA), "plane_probe": h_}
-    smem_state = {"align_packed": cells_k3 * K3_SMEM_WORDS_PER_CELL * 4}
+    smem_state = {}
     if len(SMALL_RNA) <= K4_SMEM_MAX_H:
         smem_state["align_unpacked"] = cells_k4 * K4_SMEM_WORDS_PER_CELL * 4
     ms, plain_ms, bound, old_bound, p_rate, smem_ms = ({} for _ in range(6))
@@ -1086,7 +1152,8 @@ def main():
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
          "library_ms": library[k], "assumed_bound_ms": old_bound[k][0],
-         "p_rate_ms": p_rate[k], "smem_state_ms": smem_ms[k]}
+         "p_rate_ms": p_rate[k], "smem_state_ms": smem_ms[k],
+         "sass_instr_per_cell": k3_cell_instr if k == "align_packed" else None}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,11 @@ of two hand-written CUDA kernels for CUDA tensors:
   of 1-31 bases, reads of at most 511 columns);
 * K3, ``csrc/align_packed.cu``, outside it and inside
   :func:`packed_wide_ok` (adapters of up to 72 bases, reads up to the
-  reference's packed-field bound).
+  reference's packed-field bound).  K3 runs a lane group per read:
+  :func:`k3_lanes` lanes, each holding :data:`K3_ROWS` adapter rows in
+  registers, with a wavefront over the columns across the lanes (lane
+  ``j`` computes column ``s - j`` at step ``s`` and hands its last row
+  and the column's partial max to lane ``j + 1``).
 
 For CPU tensors it runs :func:`align_batch_packed_plain`, which unpacks
 the words to ASCII (N wherever the N plane bit is set) and calls the
@@ -38,6 +42,20 @@ _ASCII = torch.tensor(list(b"ACGT"), dtype=torch.uint8)
 # K1 (csrc/align_packed12.cu) and K3 (csrc/align_packed.cu)
 launches = 0
 wide_launches = 0
+
+
+# K3's schedule: adapter rows a lane (``constexpr int K`` in
+# csrc/align_packed.cu, which tests/test_torch_align_wide.py holds equal),
+# and lanes a read, the least power of two that holds H rows (launch_g)
+K3_ROWS = 9
+
+
+def k3_lanes(H: int) -> int:
+    """Lanes K3 gives a read for an adapter of ``H`` bases (1, 2, 4 or 8)."""
+    g = 1
+    while g * K3_ROWS < H:
+        g *= 2
+    return g
 
 
 def _h_pad(H: int) -> int:

@@ -9,8 +9,8 @@ variant of the probe kernel (``csrc/plane_probe.cu``: the four TPU cases,
 plus DPX for the two dependent ones) in both residences (``reg``,
 ``smem``), first at the DP kernels' shapes (B = 262,144 columns, H = 17,
 21, 33 and 72 rows: the headline, small-RNA and TruSeq adapters and K3's
-widest; ``smem`` with K3's 3 x H x 256 bytes a block where the plane needs
-less) and then at the TPU's own shape (``[24, 2048]`` int32, ``[32,
+widest; ``smem`` with 3 x H x 256 bytes a block, the row state of K3's
+earlier one-thread-per-read design, where the plane needs less) and then at the TPU's own shape (``[24, 2048]`` int32, ``[32,
 2048]`` int16), with the TPU's K = 32 steps of U = 256 plane ops.  Each
 run is timed with CUDA events over 10 launches after a warm-up, and
 prints one JSON line:
@@ -46,7 +46,9 @@ from .kernels.probe import CASES, TPU_B, TPU_K, TPU_U, plane_ops
 ASSUMED_INT32_OPS = 132 * 64 * 1.98e9  # SMs x INT32 lanes x max SM clock
 DP_B = 262_144
 DP_H = (17, 21, 33, 72)
-K3_SMEM_WORDS_A_ROW = 3  # K3's row state: score, W1, W2 per row and thread
+# the row state K3's earlier one-thread-per-read design kept in shared
+# memory: score, W1, W2 per row and thread
+K3_SMEM_WORDS_A_ROW = 3
 VARIANTS = (("dependent", False), ("dependent", True), ("independent", False),
             ("dependent_i16", False), ("dependent_i16", True),
             ("independent_i16", False))
@@ -162,6 +164,25 @@ def _loop_plane_ops(res: str, dep: bool, H: int) -> int:
     return 2 * 8 * (min(GROUP, H) if res == "reg" else H)
 
 
+def sass_functions(obj: str) -> dict:
+    """``{mangled name: SASS lines}`` of every function in the object file
+    ``obj`` (``cuobjdump --dump-sass``); empty when cuobjdump or the object
+    is missing."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not (os.path.exists(obj) and os.access(tool, os.X_OK)):
+        return {}
+    text = subprocess.run([tool, "--dump-sass", obj], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, body = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            body = funcs.setdefault(m.group(1), [])
+        elif body is not None:
+            body.append(line)
+    return funcs
+
+
 def sass_report():
     """``{(res, H, dep, i16, dpx): {"instr_per_op", "lds_per_op",
     "sts_per_op", "ops"}}`` from ``cuobjdump --dump-sass`` of the built
@@ -169,19 +190,12 @@ def sass_report():
     obj = os.path.join(_build.BUILD_DIR,
                        _build.build_key(_build.PROBE_SOURCES),
                        "plane_probe.cu.o")
-    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not (os.path.exists(obj) and os.access(tool, os.X_OK)):
-        return {}
-    text = subprocess.run([tool, "--dump-sass", obj], capture_output=True,
-                          text=True, timeout=300).stdout
     report = {}
-    name, body = None, []
-
-    def flush():
-        m = _KERNEL.search(name or "")
+    for name, body in sass_functions(obj).items():
+        m = _KERNEL.search(name)
         hist = _hot_loop(body) if m else None
         if not hist:
-            return
+            continue
         res, H = m.group(1), int(m.group(2))
         dep, i16, dpx = (m.group(k) == "1" for k in (3, 4, 5))
         ops = _loop_plane_ops(res, dep, H)
@@ -190,15 +204,6 @@ def sass_report():
             "lds_per_op": hist.get("LDS", 0) / ops,
             "sts_per_op": hist.get("STS", 0) / ops,
             "ops": hist}
-
-    for line in text.splitlines():
-        m = _FUNC.search(line)
-        if m:
-            flush()
-            name, body = m.group(1), []
-        else:
-            body.append(line)
-    flush()
     return report
 
 

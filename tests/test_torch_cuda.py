@@ -98,6 +98,16 @@ def test_k1_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
                                    rtol=0, atol=0, msg=k)
 
 
+# K3 at the edges of its lane groups (align_cuda.K3_ROWS = 9 rows a lane):
+# H = 1, k, k + 1, 2k, 2k + 1, 31-33, 4k, 4k + 1, 64, 72 on a ragged B of
+# 1,001 reads (L = 600 below H = 32, where K1 takes L <= 511), the four
+# (N plane, flags) variants in turn; odd H carry N adapter bases
+_K3_EDGES = [
+    ((b"ACGTN" + TRUSEQ * 3)[:H] if H % 2 else (TRUSEQ * 3)[:H],
+     600 if H < 32 else 150, 0.05, 1001, n % 4 < 2, n % 2 == 0)
+    for n, H in enumerate((1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72))]
+
+
 @pytest.mark.parametrize("adapter,L,n_frac,B,with_nm,tie", [
     (TRUSEQ, 150, 0.03, 4096, True, True),           # 33-base TruSeq
     (TRUSEQ, 150, 0.03, 1000, True, False),          # ragged B, flag-free
@@ -105,11 +115,18 @@ def test_k1_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
     (b"ACGTN" * 14 + b"AC", 600, 0.05, 512, True, True),  # H=72, L=600
     (ADAPTER, 600, 0.03, 300, True, True),           # L > 511 with H=17
     (TRUSEQ, 150, 0.05, 1, True, True),              # B=1
+    *_K3_EDGES,
+    (TRUSEQ, 4000, 0.03, 256, True, True),           # long reads
+    (TRUSEQ, 4000, 0.03, 256, False, False),
 ])
 def test_k3_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
     b2w, nmw, lengths = _operands(L + B + 1, B, L, n_frac, adapter, dev)
     if not with_nm:
         nmw = None
+    # lengths 0, 1, below the lane count and exactly L on rows 1-4, where
+    # B has them; row 0 keeps its random length
+    edge = [0, 1, max(0, align_cuda.k3_lanes(len(adapter)) - 1), L][:B - 1]
+    lengths[1:1 + len(edge)] = torch.tensor(edge, dtype=torch.int32)
     before = (align_cuda.launches, align_cuda.wide_launches)
     got = align_cuda.align_batch_packed(b2w, nmw, lengths, adapter, L=L,
                                         tie_flag=tie)

@@ -246,3 +246,34 @@ def test_sass_reading_takes_the_innermost_loop():
     # one k of the dependent chain over H = 2 rows: 8 plane ops, 10
     # instructions
     assert probe._loop_plane_ops("reg", True, 2) == 8
+
+
+def _k3_body():
+    """A SASS loop of 6 instructions."""
+    lines = ["        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
+    ops = ["VIADD R4, R4, 0x1"] * 5
+    for i, op in enumerate(ops):
+        lines.append("        /*%04x*/                   %s ;" % (16 + 16 * i, op))
+    lines.append("        /*%04x*/               @!P0 BRA 0x10 ;"
+                 % (16 + 16 * len(ops)))
+    lines.append("        /*%04x*/                   EXIT ;"
+                 % (32 + 16 * len(ops)))
+    return lines
+
+
+def test_k3_sass_report_counts_cells(monkeypatch):
+    """K3's SASS reading in ``chip_smoke.py``: a pass of the lane-group
+    kernel's step loop is K3_ROWS cells; the mangled names give (has_nm,
+    tie, G), and other functions are left out."""
+    import chip_smoke
+    from fastx_toolkit_tpu_torch.kernels.align_cuda import K3_ROWS
+
+    k3 = ("_ZN41_GLOBAL__N__x_15_align_packed_cu_y19align_packed_kernel"
+          "ILb1ELb0ELi4EEEvPKjS2_PKiNS_12AdapterCodesEiiiPi")
+    monkeypatch.setattr(probe, "sass_functions", lambda obj: {
+        k3: _k3_body(), "_Z5otheri": _k3_body()})
+    rep = chip_smoke.k3_sass_report("unused.o")
+    assert set(rep) == {(True, False, 4)}
+    assert rep[(True, False, 4)]["instr"] == 6
+    assert rep[(True, False, 4)]["cells"] == K3_ROWS
+    assert rep[(True, False, 4)]["instr_per_cell"] == 6 / K3_ROWS
