@@ -12,30 +12,41 @@ of the JAX package:
    limit (``nvidia-smi --query-gpu=name,power.limit``);
 2. build   — compiles the CUDA kernels from ``fastx_toolkit_tpu_torch/csrc``
    with nvcc, the paths' library and the probe's at once, and prints the
-   build seconds, the compiler's register / spill report and K3's SASS
-   instructions a DP cell (its hot loop in ``cuobjdump --dump-sass``);
+   build seconds, the compiler's register / spill report and the SASS
+   instructions a DP cell of both lane-group kernels, K1/K3's and K4's
+   (their hot loops in ``cuobjdump --dump-sass``), and holds K4's (G, K)
+   pick and gate in the library equal to the wrapper's;
 3. kernels — every kernel against its plain torch version on the card,
-   every output field equal (tolerance 0: integer results):
-   K1 (packed adapter DP) and K2 (packed counts) on the first 262,144
-   reads of the headline lane, on the no-N-plane shortcut and on
-   adversarial batches at H=31 and L=511; K3 (wide packed DP) on the
-   first 262,144 reads of a 1M x 150 bp lane spiked with the 33-base
-   TruSeq adapter, on its no-N-plane shortcut and at H=72, L=600, and at
-   each edge of its lane groups (9 adapter rows a lane): H = 1, 9, 10,
-   18, 19, 31, 32, 33, 36, 37, 64, 72 on 1,001 reads (L = 600 below H =
-   32, where K1 takes L <= 511, else 150) with lengths 0, 1, below the
-   lane count and L among them, and 256 reads of L = 4,000, each with and
-   without the N plane and the flags; K4
+   every output field equal (tolerance 0: integer results), and each
+   adapter-DP call on the launch counter of its route:
+   K1 (packed adapter DP, on K3's lane-group kernel) and K2 (packed
+   counts) on the first 262,144 reads of the headline lane, on the
+   no-N-plane shortcut and on adversarial batches at H=31 and L=511; K3
+   (wide packed DP) on the first 262,144 reads of a 1M x 150 bp lane
+   spiked with the 33-base TruSeq adapter, on its no-N-plane shortcut and
+   at H=72, L=600, and at each edge of its lane groups (9 adapter rows a
+   lane): H = 1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72 on 1,001 reads
+   (L = 600 below H = 32, where K1's gate takes L <= 511, else 150) with
+   lengths 0, 1, below the lane count and L among them, and 256 reads of
+   L = 4,000, each with and without the N plane and the flags; K4
    (unpacked DP) on the first 262,144 reads of the 1M x 50 bp small-RNA
    lane, on its legacy-effective bases, at H=99 with lowercase and U
-   bytes (L=300), and at B=1 and B=300; K5 (quality-stats histogram) on
-   the first 262,144 reads of the headline lane (L=128) and of the TruSeq
-   lane (L=160), on a batch of one quality value, on bytes outside ACGTN
-   with qualities below -15 and above 93, at B=1, B=300 and L=301; K5b
-   (its 2-bit mode) on the headline reads; in phase 4, K4 again on the
-   inputs of every launch that paths (a) and (c) made, K3 on those of
-   path (b) and K5 on those of path (d) (kept as device copies during the
-   run), so each is held
+   bytes (L=300), at B=1 and B=300, and at each edge of its (G, K)
+   picks (H = 1, 8, 9, 16, 17, 18, 21, 22, 32-35, 64, 65, 72, 73, 99, 127
+   on 1,001 reads of L = 150 with lengths 0, 1, below the lane count and
+   L among them, in the table variant and from H = 8 the compare
+   variant, with and without the flags), and on its one-thread-per-read
+   route beyond the gate (H = 128 on 4,096 reads of L = 200, and H = 21
+   on 64 reads of width 32,750 whose lengths stay below 1,000, held
+   against the plain version on their first 1,000 columns: columns at or
+   past a read's length never reach its result); K5
+   (quality-stats histogram) on the first 262,144 reads of the headline
+   lane (L=128) and of the TruSeq lane (L=160), on a batch of one quality
+   value, on bytes outside ACGTN with qualities below -15 and above 93,
+   at B=1, B=300 and L=301; K5b (its 2-bit mode) on the headline reads;
+   in phase 4, K4 again on the inputs of every launch that paths (a) and
+   (c) made, K3 on those of path (b) and K5 on those of path (d) (kept as
+   device copies during the run), so each is held
    against its plain version at each shape a path gives it; P (the
    plane-op probe, ``csrc/plane_probe.cu``) in every variant (``reg`` and
    ``smem``, the four TPU cases, DPX for the dependent two) at every shape
@@ -76,10 +87,11 @@ of the JAX package:
    ``reg`` runs pass the 64 INT32 lanes an SM, so the issue rate is the
    ceiling); beside it, as readings and not as the bound: the same
    operations at the best ``reg`` int32 rate P reached at the kernel's H
-   (``p_rate_ms``), for K4 the shared-memory bytes its row state moves
-   over the best ``smem`` rate P reached (``smem_state_ms``; K3 keeps its
-   rows in registers), and the bound from the assumed INT32-lane peak
-   (SMs x 64 lanes x the max SM clock; ``assumed_bound_ms``); P's own
+   (``p_rate_ms``) and the bound from the assumed INT32-lane peak (SMs x
+   64 lanes x the max SM clock; ``assumed_bound_ms``); no kernel keeps a
+   row state in shared memory, so ``smem_state_ms`` is null; K4 also at
+   path (c)'s shape (the headline lane's first 262,144 reads as ASCII, H
+   = 17, L = 100) on a line of its own; P's own
    entry is its ``reg`` dependent int32 run at [33 x 262,144] beside its
    plain version, bound the same way;
 6. prints its own seconds, the kernels' JSON line, the nvidia-smi line,
@@ -162,9 +174,10 @@ CLIPPER_ARGV = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
 KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked",
-           "stats_hist", "stats_hist_b2", "plane_probe")
+           "align_unpacked_serial", "stats_hist", "stats_hist_b2",
+           "plane_probe")
 META = {  # name -> (source, the TPU kernel it replaces)
-    "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed12.cu",
+    "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
     "packed_counts": ("fastx_toolkit_tpu_torch/csrc/packed_counts.cu",
                       "fastx_toolkit_tpu/kernels/counts_pallas.py:31"),
@@ -172,6 +185,8 @@ META = {  # name -> (source, the TPU kernel it replaces)
                      "fastx_toolkit_tpu/kernels/align_pallas.py:638"),
     "align_unpacked": ("fastx_toolkit_tpu_torch/csrc/align_unpacked.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:157"),
+    "align_unpacked_serial": ("fastx_toolkit_tpu_torch/csrc/align_unpacked.cu",
+                              "fastx_toolkit_tpu/kernels/align_pallas.py:157"),
     "stats_hist": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
                    "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
     "stats_hist_b2": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
@@ -192,15 +207,15 @@ INT32_LANES = 132 * 64     # SMs x INT32 lanes (the assumed peak)
 # compiler spreading int32 adds over the INT32 and FMA pipes, past the
 # INT32 lanes' rate): the bounds' operation term
 ISSUE_LANES = 132 * 4 * 32
-# shared-memory words a DP cell reads and writes in K4's design, from the
-# source: its 7 Cell words (csrc/align_unpacked.cu, in shared memory while
-# H <= 54); K1 and K3 keep their row state in registers.  A reading beside
-# the bound: the alignment itself does not need it
-K4_SMEM_WORDS_PER_CELL = 14
-K4_SMEM_MAX_H = 54
 # K3's checks at the edges of its lane groups (9 rows a lane): H at 1, k,
 # k + 1, 2k, 2k + 1, 31-33, 4k, 4k + 1, 64 and 72
 K3_EDGE_H = (1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72)
+# K4's checks at the edges of its (G, K) picks (align_unpacked_cuda.
+# K4_TABLE_PICKS: 17, 21, 34, 72 and 128 rows; K4_COMPARE_PICKS: 8, 16,
+# 32, 64 and 128): H at 1, each pick's first and last H, the CLIs' 99 and
+# the gate's 127
+K4_EDGE_H = (1, 8, 9, 16, 17, 18, 21, 22, 32, 33, 34, 35, 64, 65, 72, 73, 99,
+             127)
 # the probe's timed variant in the kernels line: the dependent int32 chain
 # in registers at K3's TruSeq shape
 PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
@@ -216,6 +231,7 @@ def counters():
             "packed_counts": counts_cuda.launches,
             "align_packed": align_cuda.wide_launches,
             "align_unpacked": align_unpacked_cuda.launches,
+            "align_unpacked_serial": align_unpacked_cuda.serial_launches,
             "stats_hist": stats_cuda.launches,
             "stats_hist_b2": stats_cuda.b2_launches,
             "plane_probe": probe_cuda.launches}
@@ -224,8 +240,20 @@ def counters():
 def reset_counters():
     align_cuda.launches = align_cuda.wide_launches = 0
     counts_cuda.launches = align_unpacked_cuda.launches = 0
+    align_unpacked_cuda.serial_launches = 0
     stats_cuda.launches = stats_cuda.b2_launches = 0
     probe_cuda.launches = 0
+
+
+def route_check(label, before, kernel):
+    """Fail unless one adapter-DP call since ``before`` (a
+    :func:`counters` reading) counted one launch on ``kernel``'s counter
+    and none on any other."""
+    after = counters()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved != {kernel: 1}:
+        fail("%s: expected one launch of %s, counted %s"
+             % (label, kernel, moved))
 
 
 def record_cut(data: bytes, n_records: int) -> int:
@@ -322,31 +350,59 @@ def k3_launch(_b2w, _nmw, _lengths, codes, L, _tie_flag):
     return not align_cuda.packed12_ok(L, len(codes))
 
 
-# K3's kernels in csrc/align_packed.cu: align_packed_kernel<HAS_NM, TIE, G>
-_K3_KERNEL = re.compile(r"align_packed_kernelILb([01])ELb([01])ELi(\d+)EE")
+# the lane-group kernels, by source: align_packed_kernel<HAS_NM, TIE, G>
+# (K1 and K3, align_cuda.K3_ROWS rows a lane) and
+# align_unpacked_kernel<TABLE, G, K> (K4)
+_LANE_KERNELS = {
+    "align_packed.cu": re.compile(
+        r"align_packed_kernelILb([01])ELb([01])ELi(\d+)EE"),
+    "align_unpacked.cu": re.compile(
+        r"align_unpacked_kernelILb([01])ELi(\d+)ELi(\d+)EE"),
+}
 
 
-def k3_sass_report(obj=None):
-    """``{(has_nm, tie, G): {"instr_per_cell", "cells", "instr", "ops"}}``
-    for K3's hot loop in ``obj`` (default: the paths' built library's
-    ``align_packed.cu.o``), read with ``cuobjdump --dump-sass``.  A pass of
-    the step loop is ``K3_ROWS`` cells of one lane.  Static counts: every
-    instruction of the loop body once, whichever branch a lane takes.
-    Empty when cuobjdump or the object is missing."""
+def lane_sass_report(source, obj=None):
+    """``{template arguments: {"instr_per_cell", "cells", "instr",
+    "ops"}}`` for the hot loop of each instantiation of the lane-group
+    kernel of ``source`` (``align_packed.cu``: (has_nm, tie, G), K3_ROWS
+    cells a step; ``align_unpacked.cu``: (table, G, K), K cells a step) in
+    ``obj`` (default: the paths' built library's object of ``source``),
+    read with ``cuobjdump --dump-sass``.  A pass of the step loop is the
+    cells of one lane.  Static counts: every instruction of the loop body
+    once, whichever branch a lane takes.  Empty when cuobjdump or the
+    object is missing."""
     if obj is None:
         obj = os.path.join(_build.BUILD_DIR, _build.build_key(),
-                           "align_packed.cu.o")
+                           source + ".o")
+    pattern = _LANE_KERNELS[source]
     report = {}
     for name, body in probe.sass_functions(obj).items():
-        m = _K3_KERNEL.search(name)
+        m = pattern.search(name)
         hist = probe._hot_loop(body) if m else None
         if not hist:
             continue
+        if source == "align_packed.cu":
+            key = (m.group(1) == "1", m.group(2) == "1", int(m.group(3)))
+            k = align_cuda.K3_ROWS
+        else:
+            key = (m.group(1) == "1", int(m.group(2)), int(m.group(3)))
+            k = key[2]
         n = sum(hist.values())
-        report[(m.group(1) == "1", m.group(2) == "1", int(m.group(3)))] = {
-            "instr_per_cell": n / align_cuda.K3_ROWS,
-            "cells": align_cuda.K3_ROWS, "instr": n, "ops": hist}
+        report[key] = {"instr_per_cell": n / k, "cells": k, "instr": n,
+                       "ops": hist}
     return report
+
+
+def k4_edge_adapter(H, table):
+    """An adapter of ``H`` bytes for K4's edge checks: over ACGT with N
+    bases (the table variant), or over 12 letters, 7 or more distinct
+    non-N bytes from H = 8 (the compare variant)."""
+    ad = (b"ACGTN" + SMALL_RNA * 7 if table
+          else b"ACGTNacgU" + b"tggaattcUcgggtgccaagg" * 7)[:H]
+    if (align_unpacked_cuda.adapter_table(ad) is not None) != table:
+        fail("K4 edge adapter at H=%d is not of the %s variant"
+             % (H, "table" if table else "compare"))
+    return ad
 
 
 def stats_chunk(data):
@@ -616,15 +672,46 @@ def main():
           "and spills in all" % (len(probe_regs), min(probe_regs, default=0),
                                  max(probe_regs, default=0), probe_spill),
           flush=True)
-    # K3's hot loop: SASS instructions a DP cell, per instantiation
-    k3_sass = k3_sass_report()
-    for (nm_, tie_, g_), r_ in sorted(k3_sass.items()):
-        print("  align_packed.cu HAS_NM=%d TIE=%d G=%d: %d SASS instructions "
-              "a step of %d cells, %.2f a cell" % (
-                  nm_, tie_, g_, r_["instr"], r_["cells"],
-                  r_["instr_per_cell"]), flush=True)
-    k3_cell_instr = k3_sass.get((True, True, align_cuda.k3_lanes(len(TRUSEQ))),
-                                {}).get("instr_per_cell")
+    # the lane-group kernels' hot loops: SASS instructions a DP cell, per
+    # instantiation; the cells of the kernels line are the flagged ones at
+    # the phase-5 shapes (K1 H = 17 and K3 H = 33 with the N plane, K4 the
+    # table variant at H = 21)
+    sass = {}
+    for src in ("align_packed.cu", "align_unpacked.cu"):
+        sass[src] = lane_sass_report(src)
+        for key_, r_ in sorted(sass[src].items()):
+            print("  %s %s: %d SASS instructions a step of %d cells, %.2f a "
+                  "cell" % (src, " ".join(
+                      "%s=%d" % kv for kv in zip(
+                          ("HAS_NM", "TIE", "G") if src == "align_packed.cu"
+                          else ("TABLE", "G", "K"), key_)),
+                      r_["instr"], r_["cells"], r_["instr_per_cell"]),
+                  flush=True)
+    cell_instr = {
+        "align_packed12": sass["align_packed.cu"].get(
+            (True, True, align_cuda.k3_lanes(len(PipelineConfig().adapter))),
+            {}).get("instr_per_cell"),
+        "align_packed": sass["align_packed.cu"].get(
+            (True, True, align_cuda.k3_lanes(len(TRUSEQ))), {}).get(
+                "instr_per_cell"),
+        "align_unpacked": sass["align_unpacked.cu"].get(
+            (True, *align_unpacked_cuda.k4_pick(len(SMALL_RNA))), {}).get(
+                "instr_per_cell")}
+    # K4's gate and (G, K) picks: the library's equal the wrapper's
+    lib = _build.library()
+    for H_ in range(1, 140):
+        for L_ in (50, 32700, 32768 - H_ - align_cuda._h_pad(H_)):
+            for table_ in (True, False):
+                want_ = (align_unpacked_cuda.k4_pick(H_, table_)
+                         if align_unpacked_cuda.lanes_ok(L_, H_) else None)
+                got_ = lib.fx_align_unpacked_pick(H_, L_, int(table_))
+                got_ = (got_ >> 8, got_ & 255) if got_ else None
+                if got_ != want_:
+                    fail("K4 pick at H=%d L=%d table=%s: library %s, wrapper "
+                         "%s" % (H_, L_, table_, got_, want_))
+    print("  K4's gate and (G, K) picks in the library equal the wrapper's "
+          "(H = 1-139, L = 50, 32,700 and the gate's edge, both variants)",
+          flush=True)
 
     # 3. kernels vs plain, on the card
     cfg = PipelineConfig()
@@ -641,13 +728,15 @@ def main():
     errs = dict.fromkeys(KERNELS, 0)
 
     def k_packed_check(label, b2w_, nmw_, l_, adapter_, L_, tie_flag=True):
+        before = counters()
         got = align_cuda.align_batch_packed(b2w_, nmw_, l_, adapter_, L=L_,
                                             tie_flag=tie_flag)
+        k = ("align_packed12" if align_cuda.packed12_ok(L_, len(adapter_))
+             else "align_packed")
+        route_check(label, before, k)
         want = align_cuda.align_batch_packed_plain(b2w_, nmw_, l_, adapter_,
                                                    L=L_, tie_flag=tie_flag)
         torch.cuda.synchronize()
-        k = ("align_packed12" if align_cuda.packed12_ok(L_, len(adapter_))
-             else "align_packed")
         errs[k] = max(errs[k], compare(label, got, want,
                                        FIELDS if tie_flag else FIELDS[:8]))
         return got
@@ -660,14 +749,29 @@ def main():
         errs["packed_counts"] = max(errs["packed_counts"],
                                     compare(label, got, want, ("worst", "ncnt")))
 
-    def k4_check(label, bases_, l_, adapter_, tie_flag=True):
+    def k4_check(label, bases_, l_, adapter_, tie_flag=True, plain_cols=None,
+                 want=None):
+        # plain_cols: hold against the plain version on the first columns
+        # only, past every read's length (the rest never reach a result);
+        # want: the plain version's flagged result on the same inputs (its
+        # first 8 fields do not depend on the flags)
+        before = counters()
         got = align_unpacked_cuda.align_batch_unpacked(bases_, l_, adapter_,
                                                        tie_flag=tie_flag)
-        want = align_batch(bases_, l_, adapter_, tie_flag=tie_flag)
+        k = ("align_unpacked" if align_unpacked_cuda.lanes_ok(
+            bases_.shape[1], len(adapter_)) else "align_unpacked_serial")
+        route_check(label, before, k)
+        if plain_cols is not None:
+            if int(l_.max()) > plain_cols:
+                fail("%s: a read is longer than the %d columns held"
+                     % (label, plain_cols))
+            bases_ = bases_[:, :plain_cols]
+        if want is None:
+            want = align_batch(bases_, l_, adapter_, tie_flag=tie_flag)
         torch.cuda.synchronize()
-        errs["align_unpacked"] = max(errs["align_unpacked"], compare(
+        errs[k] = max(errs[k], compare(
             label, got, want, FIELDS if tie_flag else FIELDS[:8]))
-        return got
+        return got, want
 
     def k5_check(label, codes_, q_, l_, b2=False):
         if b2:
@@ -771,6 +875,41 @@ def main():
     k4_check("K4 adversarial H=99 lower/U L=300", a_b, a_l, h99)
     k4_check("K4 small-RNA B=1", rna_b[:1], rna_l[:1], SMALL_RNA)
     k4_check("K4 small-RNA B=300", rna_b[:300], rna_l[:300], SMALL_RNA)
+    # K4 at each edge of its (G, K) picks on a ragged B, lengths 0, 1,
+    # below the lane count and L on rows 1-4, in the table variant (ACGT
+    # and N) and, from H = 8, the compare variant (12 letters), each with
+    # and without the flags (the kernel computes them either way; the
+    # wrapper leaves them out)
+    for H_ in K4_EDGE_H:
+        for table_ in (True, False) if H_ >= 8 else (True,):
+            G_ = align_unpacked_cuda.k4_pick(H_, table_)[0]
+            ad_ = k4_edge_adapter(H_, table_)
+            e_b, e_l = adversarial(rng, 1001, 150, ad_, 0.05, alphabet=(
+                b"ACGTN" if table_ else b"ACGTNacgtnUu"))
+            e_l[1:5] = [0, 1, max(0, G_ - 1), 150]
+            e_b = torch.from_numpy(e_b).to(dev)
+            e_l = torch.from_numpy(e_l).to(dev)
+            want_ = None
+            for tie_ in (True, False):
+                want_ = k4_check("K4 edge H=%d L=150 B=1001 %s%s" % (
+                    H_, "table" if table_ else "compare",
+                    " flags" if tie_ else ""), e_b, e_l, ad_,
+                    tie_flag=tie_, want=want_)[1]
+    # beyond the gate, the one-thread-per-read route: H = 128, and reads
+    # of width 32,750 (L + H + H_pad >= 2^15) no longer than 1,000
+    h128 = (SMALL_RNA * 7)[:128]
+    sr_b, sr_l = adversarial(rng, 4096, 200, h128, 0.05)
+    sr_b, sr_l = torch.from_numpy(sr_b).to(dev), torch.from_numpy(sr_l).to(dev)
+    want_ = None
+    for tie_ in (True, False):
+        want_ = k4_check("K4 serial H=128 L=200 B=4096%s" % (
+            " flags" if tie_ else ""), sr_b, sr_l, h128, tie_flag=tie_,
+            want=want_)[1]
+    w_b = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(64, 32750))
+    w_l = rng.integers(0, 1001, 64).astype(np.int32)
+    w_l[1:3] = [0, 1]
+    k4_check("K4 serial L=32750 H=21 B=64 flags", torch.from_numpy(w_b).to(dev),
+             torch.from_numpy(w_l).to(dev), SMALL_RNA, plain_cols=1000)
 
     # K5 on the first chunk of the headline and TruSeq lanes as the stats
     # CLI's device path gives them (L padded to 128 and 160), on one quality
@@ -1074,6 +1213,15 @@ def main():
             rna_b.numel() + 10 * 4 * rna_l.numel(),
             "%d reads x %d bp, H=%d" % (CHUNK, rna_b.shape[1],
                                         len(SMALL_RNA))),
+        "align_unpacked_serial": (
+            lambda: align_unpacked_cuda.align_batch_unpacked(
+                sr_b, sr_l, h128, tie_flag=True),
+            lambda: align_batch(sr_b, sr_l, h128, tie_flag=True),
+            int(sr_l.clamp(max=sr_b.shape[1]).sum()) * len(h128)
+            * DP_OPS_PER_CELL,
+            sr_b.numel() + 10 * 4 * sr_l.numel(),
+            "%d reads x %d bp, H=%d" % (sr_b.shape[0], sr_b.shape[1],
+                                        len(h128))),
     }
     # K5/K5b: 2 bytes (K5b 1.25) read a counted base, the lengths, and the
     # histogram written once; the library call is one torch.bincount over
@@ -1112,15 +1260,11 @@ def main():
         "%s %s [%d x %d], K=%d, U=%d" % (res_, probe.variant_name(case_, dpx_),
                                          h_, b_, TPU_K, TPU_U))
     library["plane_probe"] = None
-    # the readings beside the bound: each kernel's H (for P's reg rate)
-    # and its row state's shared-memory bytes (cells x words a cell x 4 B)
-    cells_k4 = int(rna_l.clamp(max=rna_b.shape[1]).sum()) * len(SMALL_RNA)
+    # the reading beside the bound: each kernel's H (for P's reg rate)
     at_h = {"align_packed12": len(adapter), "align_packed": len(TRUSEQ),
-            "align_unpacked": len(SMALL_RNA), "plane_probe": h_}
-    smem_state = {}
-    if len(SMALL_RNA) <= K4_SMEM_MAX_H:
-        smem_state["align_unpacked"] = cells_k4 * K4_SMEM_WORDS_PER_CELL * 4
-    ms, plain_ms, bound, old_bound, p_rate, smem_ms = ({} for _ in range(6))
+            "align_unpacked": len(SMALL_RNA),
+            "align_unpacked_serial": len(h128), "plane_probe": h_}
+    ms, plain_ms, bound, old_bound, p_rate = ({} for _ in range(5))
     for k, (fn, plain, ops, nbytes, shape) in shapes.items():
         ms[k] = timed[0]["ms"] if fn is None else cuda_ms(fn, 10)
         plain_ms[k] = cuda_ms(plain, 1 if fn is None else 2)
@@ -1128,19 +1272,33 @@ def main():
         old_bound[k] = roofline(ops, nbytes, INT32_LANES * clock_hz)
         p_rate[k] = ops / rates["int32_at"].get(at_h.get(k),
                                                  rates["int32"]) * 1e3
-        smem_ms[k] = (smem_state[k] / rates["smem"] * 1e3
-                      if k in smem_state else None)
-        print("  %-15s %.3f ms (plain torch %.3f ms; library %s; bound "
+        print("  %-21s %.3f ms (plain torch %.3f ms; library %s; bound "
               "%.4f ms by %s at the int32 issue rate and 3.35 TB/s; "
-              "readings: int32 ops at P's best reg rate %.4f ms, row-state "
-              "shared memory at P's smem rate %s, assumed-peak bound %.4f "
-              "ms by %s) at %s on %s"
+              "readings: int32 ops at P's best reg rate %.4f ms, "
+              "assumed-peak bound %.4f ms by %s) at %s on %s"
               % (k, ms[k], plain_ms[k],
                  "n/a" if library[k] is None
                  else "torch.bincount %.3f ms" % library[k],
-                 bound[k][0], bound[k][1], p_rate[k],
-                 "n/a" if smem_ms[k] is None else "%.4f ms" % smem_ms[k],
-                 old_bound[k][0], old_bound[k][1], shape, card), flush=True)
+                 bound[k][0], bound[k][1], p_rate[k], old_bound[k][0],
+                 old_bound[k][1], shape, card), flush=True)
+    # K4 at path (c)'s shape: the headline lane's first chunk as ASCII
+    # against the headline adapter, held against the plain version once
+    hl = codec.parse(data[:record_cut(data, CHUNK)], filetype=codec.FASTQ_ONLY,
+                     q_offset=33)
+    hl_b = torch.from_numpy(hl.bases).to(dev)
+    hl_l = torch.from_numpy(hl.lengths.astype(np.int32)).to(dev)
+    k4_check("K4 headline lane 262144 ASCII", hl_b, hl_l, adapter)
+    hl_ms = cuda_ms(lambda: align_unpacked_cuda.align_batch_unpacked(
+        hl_b, hl_l, adapter, tie_flag=True), 10)
+    hl_bound = roofline(
+        int(hl_l.clamp(max=hl_b.shape[1]).sum()) * len(adapter)
+        * DP_OPS_PER_CELL, hl_b.numel() + 10 * 4 * hl_l.numel(),
+        ISSUE_LANES * clock_hz)
+    print("  align_unpacked at path (c)'s shape: %.3f ms (bound %.4f ms by "
+          "%s) at %d reads x %d bp, H=%d, (G, K) = %s on %s"
+          % (hl_ms, hl_bound[0], hl_bound[1], hl_b.shape[0], hl_b.shape[1],
+             len(adapter), align_unpacked_cuda.k4_pick(len(adapter)), card),
+          flush=True)
 
     # 6. kernels
     print("[6 done] %.1f s in all" % (time.perf_counter() - t_main),
@@ -1152,8 +1310,8 @@ def main():
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
          "library_ms": library[k], "assumed_bound_ms": old_bound[k][0],
-         "p_rate_ms": p_rate[k], "smem_state_ms": smem_ms[k],
-         "sass_instr_per_cell": k3_cell_instr if k == "align_packed" else None}
+         "p_rate_ms": p_rate[k], "smem_state_ms": None,
+         "sass_instr_per_cell": cell_instr.get(k)}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,11 @@ counterpart is easy to find:
   (the fully-packed body with K1/K3 and K2, the unpacked ones with K4);
 * ``engine/lines.py`` — the streaming raw-line engine;
 * ``kernels/align.py`` — the exact x10-integer adapter DP in plain torch;
-* ``kernels/align_cuda.py`` + ``csrc/align_packed12.cu`` /
-  ``csrc/align_packed.cu`` — K1 and K3, the packed adapter DPs;
+* ``kernels/align_cuda.py`` + ``csrc/align_packed.cu`` — K1 and K3, the
+  packed adapter DP (one lane-group kernel at both kernels' shapes);
 * ``kernels/align_unpacked_cuda.py`` + ``csrc/align_unpacked.cu`` — K4,
-  the unpacked adapter DP;
+  the unpacked adapter DP (a lane-group kernel, and one thread a read
+  beyond its adapter bound);
 * ``kernels/counts_cuda.py`` + ``csrc/packed_counts.cu`` — K2, the packed
   per-read base counts;
 * ``ops/transforms.py``, ``ops/clipper.py`` — the per-read tools;

@@ -17,8 +17,8 @@ bodies that give identical decisions:
   * quality filter  — popcount over the ``qual < q`` plane bytes;
   * quality trimmer — the last passing position by lowest-set-bit tricks;
   * masker          — one OR of its plane into the effective-N plane;
-  * clipper DP      — K1 (``csrc/align_packed12.cu``) or K3
-    (``csrc/align_packed.cu``) on the 2-bit words and the N|mask plane;
+  * clipper DP      — ``csrc/align_packed.cu`` at K1's or K3's shapes,
+    on the 2-bit words and the N|mask plane;
   * artifacts / N   — K2 (``csrc/packed_counts.cu``).
 
 :func:`packed_decisions_pipeline` routes a packed chunk as the reference

@@ -25,8 +25,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("align_packed12.cu", "align_packed.cu", "align_unpacked.cu",
-           "packed_counts.cu", "stats_hist.cu")
+SOURCES = ("align_packed.cu", "align_unpacked.cu", "packed_counts.cu",
+           "stats_hist.cu")
 PROBE_SOURCES = ("plane_probe.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -123,16 +123,18 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.fx_align_packed12.argtypes = [vp, vp, vp, ctypes.c_char_p,
-                                              ci, ci, ci, ci, vp, vp]
-            lib.fx_align_packed12.restype = ci
-            lib.fx_align_packed.argtypes = lib.fx_align_packed12.argtypes
+            cp = ctypes.c_char_p
+            lib.fx_align_packed.argtypes = [vp, vp, vp, cp, ci, ci, ci, ci,
+                                            vp, vp]
             lib.fx_align_packed.restype = ci
-            lib.fx_align_unpacked.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
-                                              vp, vp]
+            lib.fx_align_unpacked.argtypes = [vp, vp, cp, cp, ci, ci, ci, ci,
+                                              ci, vp, vp]
             lib.fx_align_unpacked.restype = ci
-            lib.fx_align_unpacked_smem_ok.argtypes = [ci]
-            lib.fx_align_unpacked_smem_ok.restype = ci
+            lib.fx_align_unpacked_pick.argtypes = [ci, ci, ci]
+            lib.fx_align_unpacked_pick.restype = ci
+            lib.fx_align_unpacked_serial.argtypes = [vp, vp, vp, ci, ci, ci,
+                                                     ci, vp, vp, vp]
+            lib.fx_align_unpacked_serial.restype = ci
             lib.fx_packed_counts.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
             lib.fx_packed_counts.restype = ci
             lib.fx_stats_hist.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp,

@@ -2,23 +2,27 @@
 
 Counterpart of ``fastx_toolkit_tpu/kernels/align_pallas.py``
 (``packed12_ok``, ``pallas_bounds_ok``, ``adapter_codes``,
-``align_batch_pallas_packed``).  :func:`align_batch_packed` launches one
-of two hand-written CUDA kernels for CUDA tensors:
+``align_batch_pallas_packed``).  :func:`align_batch_packed` launches the
+hand-written CUDA kernel ``csrc/align_packed.cu`` (``fx_align_packed``)
+for CUDA tensors, at the shapes of both TPU kernels it replaces, each
+counted on its own counter:
 
-* K1, ``csrc/align_packed12.cu``, inside :func:`packed12_ok` (adapters
-  of 1-31 bases, reads of at most 511 columns);
-* K3, ``csrc/align_packed.cu``, outside it and inside
-  :func:`packed_wide_ok` (adapters of up to 72 bases, reads up to the
-  reference's packed-field bound).  K3 runs a lane group per read:
-  :func:`k3_lanes` lanes, each holding :data:`K3_ROWS` adapter rows in
-  registers, with a wavefront over the columns across the lanes (lane
-  ``j`` computes column ``s - j`` at step ``s`` and hands its last row
-  and the column's partial max to lane ``j + 1``).
+* K1's, inside :func:`packed12_ok` (adapters of 1-31 bases, reads of at
+  most 511 columns; :data:`launches`);
+* K3's, outside it and inside :func:`packed_wide_ok` (adapters of up to
+  72 bases, reads up to the reference's packed-field bound;
+  :data:`wide_launches`).
+
+The kernel runs a lane group per read: :func:`k3_lanes` lanes, each
+holding :data:`K3_ROWS` adapter rows in registers, with a wavefront over
+the columns across the lanes (lane ``j`` computes column ``s - j`` at
+step ``s`` and hands its last row and the column's partial max to lane
+``j + 1``).
 
 For CPU tensors it runs :func:`align_batch_packed_plain`, which unpacks
 the words to ASCII (N wherever the N plane bit is set) and calls the
 plain torch DP (:func:`.align.align_batch`).  There is no fallback: a
-CUDA tensor launches a kernel or raises.
+CUDA tensor launches the kernel or raises.
 
 Operand layout (the engine's, ``engine/pipeline.py::_words_T``):
 ``b2w`` ``[ceil(L/32)*2, B]`` int32 — 16 two-bit codes per word (A0 C1 G2
@@ -38,8 +42,8 @@ from .align import FIELDS, align_batch
 _CODE_OF = {65: 0, 67: 1, 71: 2, 84: 3, 78: 4}  # A C G T N
 _ASCII = torch.tensor(list(b"ACGT"), dtype=torch.uint8)
 
-# kernel launches by align_batch_packed (reset them to 0 to count a run):
-# K1 (csrc/align_packed12.cu) and K3 (csrc/align_packed.cu)
+# launches of csrc/align_packed.cu by align_batch_packed (reset them to 0
+# to count a run): at K1's shapes (packed12_ok) and at K3's
 launches = 0
 wide_launches = 0
 
@@ -63,9 +67,8 @@ def _h_pad(H: int) -> int:
 
 
 def packed12_ok(L: int, H: int) -> bool:
-    """K1's gate: adapters of 1-31 bases (the kernel keeps the state of
-    32 adapter rows in registers) and reads of at most 511 columns (the
-    reference P12 kernel's bound)."""
+    """K1's gate, the reference P12 kernel's: adapters of 1-31 bases and
+    reads of at most 511 columns."""
     return 1 <= H <= 31 and L <= 511
 
 
@@ -138,8 +141,8 @@ def check_operands(b2w, nmw, lengths, L: int = 0):
 
 def align_batch_packed_plain(b2w, nmw, lengths, adapter: bytes, L: int,
                              tie_flag: bool = False):
-    """The plain torch version of K1 on any device: unpack to ASCII, then
-    :func:`.align.align_batch`."""
+    """The plain torch version of K1 and K3 on any device: unpack to
+    ASCII, then :func:`.align.align_batch`."""
     bases = _ASCII.to(b2w.device)[unpack_codes(b2w, L).long()]
     if nmw is not None:
         bases = torch.where(unpack_bits(nmw, L), torch.tensor(
@@ -154,15 +157,13 @@ def _launch(b2w, nmw, lengths, codes, L: int, tie_flag: bool):
     out = torch.empty((9, B), dtype=torch.int32, device=b2w.device)
     stream = torch.cuda.current_stream(b2w.device).cuda_stream
     if packed12_ok(L, len(codes)):
-        fn, name = lib.fx_align_packed12, "fx_align_packed12"
         launches += 1
     else:
-        fn, name = lib.fx_align_packed, "fx_align_packed"
         wide_launches += 1
-    _build.check(fn(
+    _build.check(lib.fx_align_packed(
         b2w.data_ptr(), None if nmw is None else nmw.data_ptr(),
         lengths.data_ptr(), bytes(codes), len(codes), L, B,
-        1 if tie_flag else 0, out.data_ptr(), stream), name)
+        1 if tie_flag else 0, out.data_ptr(), stream), "fx_align_packed")
     res = dict(zip(FIELDS, out[:8]))
     if tie_flag:
         res["tie_fragile"] = out[8].bool()

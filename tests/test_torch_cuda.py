@@ -86,10 +86,13 @@ def test_k1_matches_plain_on_card(dev, adapter, L, n_frac, B, with_nm, tie):
     b2w, nmw, lengths = _operands(L + B, B, L, n_frac, adapter, dev)
     if not with_nm:
         nmw = None
-    before = align_cuda.launches
+    # K1's shapes launch the lane-group kernel of csrc/align_packed.cu,
+    # counted on K1's counter
+    before = (align_cuda.launches, align_cuda.wide_launches)
     got = align_cuda.align_batch_packed(b2w, nmw, lengths, adapter, L=L,
                                         tie_flag=tie)
-    assert align_cuda.launches == before + 1
+    assert (align_cuda.launches, align_cuda.wide_launches) == \
+        (before[0] + 1, before[1])
     want = align_cuda.align_batch_packed_plain(b2w, nmw, lengths, adapter,
                                                L=L, tie_flag=tie)
     for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
@@ -155,26 +158,99 @@ def _ascii_reads(seed, B, L, adapter, alphabet=b"ACGTN"):
     return bases, lengths
 
 
+def _k4_edge_adapter(H, table):
+    """An adapter of ``H`` bytes over ACGT with N bases (K4's table
+    variant), or over 12 letters with 7 or more distinct non-N bytes from
+    H = 8 (its compare variant)."""
+    return (b"ACGTN" + SMALL_RNA * 7 if table
+            else b"ACGTNacgU" + b"tggaattcUcgggtgccaagg" * 7)[:H]
+
+
+# K4 at the edges of its (G, K) picks (align_unpacked_cuda.K4_TABLE_PICKS:
+# 17, 21, 34, 72 and 128 rows; K4_COMPARE_PICKS: 8, 16, 32, 64 and 128),
+# on a ragged B of 1,001 reads, in the table variant and, from H = 8, the
+# compare variant; H = 128 is beyond the lane-group kernel's gate (the
+# one-thread-per-read route)
+_K4_EDGES = [
+    (_k4_edge_adapter(H, table), 150, 1001,
+     b"ACGTN" if table else b"ACGTNacgtnUu")
+    for H in (1, 8, 9, 16, 17, 18, 21, 22, 32, 33, 34, 35, 64, 65, 72, 73, 99,
+              127, 128)
+    for table in ((True, False) if H >= 8 else (True,))]
+
+
 @pytest.mark.parametrize("adapter,L,B,alphabet", [
     (SMALL_RNA, 50, 4096, b"ACGTN"),                 # small-RNA shape
     (b"tggaattcUcgggtgccaagg" * 4 + b"ACGNNUuuuACGTNa", 300, 512,
-     b"ACGTNacgtnUu"),                               # H=99, device scratch
+     b"ACGTNacgtnUu"),                               # H=99, compare variant
     (b"CCTTAAGG", 64, 300, b"ACGTNacgU"),            # B=300
     (SMALL_RNA, 50, 1, b"ACGTN"),                    # B=1
+    *_K4_EDGES,
 ])
 @pytest.mark.parametrize("tie", [True, False])
 def test_k4_matches_plain_on_card(dev, adapter, L, B, alphabet, tie):
     bases, lengths = _ascii_reads(B + L, B, L, adapter, alphabet)
+    # lengths 0, 1, below the lane count and exactly L on rows 1-4, where
+    # B has them; row 0 keeps its random length
+    lanes_ok = align_unpacked_cuda.lanes_ok(L, len(adapter))
+    table = align_unpacked_cuda.adapter_table(adapter) is not None
+    G = align_unpacked_cuda.k4_pick(len(adapter), table)[0] if lanes_ok else 1
+    edge = [0, 1, max(0, G - 1), L][:B - 1]
+    lengths[1:1 + len(edge)] = edge
     bt = torch.from_numpy(bases).to(dev)
     lt = torch.from_numpy(lengths).to(dev)
-    before = align_unpacked_cuda.launches
+    before = (align_unpacked_cuda.launches,
+              align_unpacked_cuda.serial_launches)
     got = align_unpacked_cuda.align_batch_unpacked(bt, lt, adapter,
                                                    tie_flag=tie)
-    assert align_unpacked_cuda.launches == before + 1
+    assert (align_unpacked_cuda.launches,
+            align_unpacked_cuda.serial_launches) == \
+        (before[0] + lanes_ok, before[1] + (not lanes_ok))
     want = align_batch(bt, lt, adapter, tie_flag=tie)
     for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
         torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
                                    rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_k4_serial_route_on_wide_reads_on_card(dev, tie):
+    """Reads of width 32,750 (L + H + H_pad >= 2^15) take the
+    one-thread-per-read route; their lengths stay below 1,000, so the
+    plain version on the first 1,000 columns is the same function
+    (columns at or past a read's length never reach its result)."""
+    L, B = 32750, 64
+    bases, lengths = _ascii_reads(L, B, L, SMALL_RNA)
+    lengths = lengths % 1001
+    lengths[1:3] = [0, 1]
+    assert not align_unpacked_cuda.lanes_ok(L, len(SMALL_RNA))
+    bt = torch.from_numpy(bases).to(dev)
+    lt = torch.from_numpy(lengths).to(dev)
+    before = (align_unpacked_cuda.launches,
+              align_unpacked_cuda.serial_launches)
+    got = align_unpacked_cuda.align_batch_unpacked(bt, lt, SMALL_RNA,
+                                                   tie_flag=tie)
+    assert (align_unpacked_cuda.launches,
+            align_unpacked_cuda.serial_launches) == (before[0], before[1] + 1)
+    want = align_batch(bt[:, :1000], lt, SMALL_RNA, tie_flag=tie)
+    for k in FIELDS[:8] + (("tie_fragile",) if tie else ()):
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype),
+                                   rtol=0, atol=0, msg=k)
+
+
+def test_k4_pick_in_the_library_equals_the_wrappers(dev):
+    """The library's gate and (G, K) picks (``fx_align_unpacked_pick``)
+    equal the wrapper's ``lanes_ok`` and ``k4_pick``, in both variants."""
+    from fastx_toolkit_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for H in range(1, 140):
+        for L in (50, 32700, 32768 - H - align_cuda._h_pad(H)):
+            for table in (True, False):
+                got = lib.fx_align_unpacked_pick(H, L, int(table))
+                want = (align_unpacked_cuda.k4_pick(H, table)
+                        if align_unpacked_cuda.lanes_ok(L, H) else None)
+                assert ((got >> 8, got & 255) if got else None) == want, \
+                    (H, L, table)
 
 
 @pytest.mark.parametrize("L,with_nm", [(24, True), (70, False), (70, True),

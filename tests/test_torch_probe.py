@@ -272,8 +272,28 @@ def test_k3_sass_report_counts_cells(monkeypatch):
           "ILb1ELb0ELi4EEEvPKjS2_PKiNS_12AdapterCodesEiiiPi")
     monkeypatch.setattr(probe, "sass_functions", lambda obj: {
         k3: _k3_body(), "_Z5otheri": _k3_body()})
-    rep = chip_smoke.k3_sass_report("unused.o")
+    rep = chip_smoke.lane_sass_report("align_packed.cu", "unused.o")
     assert set(rep) == {(True, False, 4)}
     assert rep[(True, False, 4)]["instr"] == 6
     assert rep[(True, False, 4)]["cells"] == K3_ROWS
     assert rep[(True, False, 4)]["instr_per_cell"] == 6 / K3_ROWS
+
+
+def test_k4_sass_report_counts_cells(monkeypatch):
+    """The same reading for K4's lane-group kernel: the mangled names give
+    (table, G, K), a pass of the step loop is K cells, and neither K3's
+    kernel nor the one-thread-per-read route is counted."""
+    import chip_smoke
+
+    k4 = ("_ZN41_GLOBAL__N__x_17_align_unpacked_cu_y21align_unpacked_kernel"
+          "ILb1ELi4ELi6EEEvPKhPKiNS_11AdapterRowsEiiiPi")
+    serial = ("_ZN41_GLOBAL__N__x_17_align_unpacked_cu_y19align_serial_kernel"
+              "ILb1EEEvPKhPKiS2_iiiPiS5_")
+    k3 = ("_ZN41_GLOBAL__N__x_15_align_packed_cu_y19align_packed_kernel"
+          "ILb1ELb0ELi4EEEvPKjS2_PKiNS_12AdapterCodesEiiiPi")
+    monkeypatch.setattr(probe, "sass_functions", lambda obj: {
+        k4: _k3_body(), serial: _k3_body(), k3: _k3_body()})
+    rep = chip_smoke.lane_sass_report("align_unpacked.cu", "unused.o")
+    assert set(rep) == {(True, 4, 6)}
+    assert rep[(True, 4, 6)]["cells"] == 6
+    assert rep[(True, 4, 6)]["instr_per_cell"] == 1.0
