@@ -12,13 +12,14 @@ of the JAX package:
    limit (``nvidia-smi --query-gpu=name,power.limit``);
 2. build   — compiles the CUDA kernels from ``fastx_toolkit_tpu_torch/csrc``
    with nvcc, the paths' library and the probe's at once, and prints the
-   build seconds, the compiler's register / spill report and the SASS
-   instructions a DP cell of both lane-group kernels, K1/K3's and K4's
-   (their hot loops in ``cuobjdump --dump-sass``), and holds K4's (G, K)
-   pick and gate in the library equal to the wrapper's;
+   build seconds, the compiler's register / spill report, the SASS
+   instructions a DP cell of both lane-group kernels, K1/K3's and K4's,
+   and a base of K5's and K2's kernels (their hot loops in ``cuobjdump
+   --dump-sass``), and holds K4's (G, K) pick and gate and K5's route and
+   one-tile plan in the library equal to the wrapper's;
 3. kernels — every kernel against its plain torch version on the card,
    every output field equal (tolerance 0: integer results), and each
-   adapter-DP call on the launch counter of its route:
+   adapter-DP and histogram call on the launch counter of its route:
    K1 (packed adapter DP, on K3's lane-group kernel) and K2 (packed
    counts) on the first 262,144 reads of the headline lane, on the
    no-N-plane shortcut and on adversarial batches at H=31 and L=511; K3
@@ -43,7 +44,15 @@ of the JAX package:
    (quality-stats histogram) on the first 262,144 reads of the headline
    lane (L=128) and of the TruSeq lane (L=160), on a batch of one quality
    value, on bytes outside ACGTN with qualities below -15 and above 93,
-   at B=1, B=300 and L=301; K5b (its 2-bit mode) on the headline reads;
+   at B=1, B=300 and L=301 (the tiled kernel, on its own counter), at
+   each edge of its routes and tiles (L = 1, 31-33, 64, 65, 128, 160 and
+   301 on 5,001 reads with lengths 0, 1, L, past L and negative among
+   them, in both modes and with the quals at an odd address), and on more
+   reads than its resident blocks may tally into 16-bit counters, all in
+   one bin; K5b (its 2-bit mode) on the headline reads; K2 also at its
+   word edges (lengths 0, 1, 15-17, 31-33, the words' end and past it, N
+   bits on word edges, at L = 64, 150 and 600, with and without the N
+   plane);
    in phase 4, K4 again on the inputs of every launch that paths (a) and
    (c) made, K3 on those of path (b) and K5 on those of path (d) (kept as
    device copies during the run), so each is held
@@ -91,7 +100,9 @@ of the JAX package:
    64 lanes x the max SM clock; ``assumed_bound_ms``); no kernel keeps a
    row state in shared memory, so ``smem_state_ms`` is null; K4 also at
    path (c)'s shape (the headline lane's first 262,144 reads as ASCII, H
-   = 17, L = 100) on a line of its own; P's own
+   = 17, L = 100) on a line of its own; the kernels alone by
+   ``torch.profiler`` (``device_ms``: the events time the host's launch
+   rate for a kernel shorter than it, as K2's); P's own
    entry is its ``reg`` dependent int32 run at [33 x 262,144] beside its
    plain version, bound the same way;
 6. prints its own seconds, the kernels' JSON line, the nvidia-smi line,
@@ -114,6 +125,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from fastx_toolkit_tpu_torch import probe, synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
@@ -175,7 +188,7 @@ FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
 KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked",
            "align_unpacked_serial", "stats_hist", "stats_hist_b2",
-           "plane_probe")
+           "stats_hist_tiled", "plane_probe")
 META = {  # name -> (source, the TPU kernel it replaces)
     "align_packed12": ("fastx_toolkit_tpu_torch/csrc/align_packed.cu",
                        "fastx_toolkit_tpu/kernels/align_pallas.py:403"),
@@ -191,6 +204,8 @@ META = {  # name -> (source, the TPU kernel it replaces)
                    "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
     "stats_hist_b2": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
                       "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
+    "stats_hist_tiled": ("fastx_toolkit_tpu_torch/csrc/stats_hist.cu",
+                         "fastx_toolkit_tpu/kernels/stats_pallas.py:56"),
     "plane_probe": ("fastx_toolkit_tpu_torch/csrc/plane_probe.cu",
                     "bench.py:1274"),
 }
@@ -216,6 +231,19 @@ K3_EDGE_H = (1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72)
 # the gate's 127
 K4_EDGE_H = (1, 8, 9, 16, 17, 18, 21, 22, 32, 33, 34, 35, 64, 65, 72, 73, 99,
              127)
+# each kernel's name in the profiler's device events (phase 5's device_ms)
+DEVICE_NAMES = {"align_packed12": "align_packed_kernel",
+                "packed_counts": "packed_counts_kernel",
+                "align_packed": "align_packed_kernel",
+                "align_unpacked": "align_unpacked_kernel",
+                "align_unpacked_serial": "align_serial_kernel",
+                "stats_hist": "stats_tile_kernel",
+                "stats_hist_b2": "stats_tile_kernel",
+                "stats_hist_tiled": "stats_tiled_kernel"}
+# K5's checks at the edges of its routes and tiles: L at 1, a word's edges,
+# 64 and 65, the headline's 128, the one-tile kernel's widest (160) and
+# past it (the tiled kernel)
+K5_EDGE_L = (1, 31, 32, 33, 64, 65, 128, 160, 301)
 # the probe's timed variant in the kernels line: the dependent int32 chain
 # in registers at K3's TruSeq shape
 PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
@@ -234,6 +262,7 @@ def counters():
             "align_unpacked_serial": align_unpacked_cuda.serial_launches,
             "stats_hist": stats_cuda.launches,
             "stats_hist_b2": stats_cuda.b2_launches,
+            "stats_hist_tiled": stats_cuda.tiled_launches,
             "plane_probe": probe_cuda.launches}
 
 
@@ -242,11 +271,12 @@ def reset_counters():
     counts_cuda.launches = align_unpacked_cuda.launches = 0
     align_unpacked_cuda.serial_launches = 0
     stats_cuda.launches = stats_cuda.b2_launches = 0
+    stats_cuda.tiled_launches = 0
     probe_cuda.launches = 0
 
 
 def route_check(label, before, kernel):
-    """Fail unless one adapter-DP call since ``before`` (a
+    """Fail unless one adapter-DP or histogram call since ``before`` (a
     :func:`counters` reading) counted one launch on ``kernel``'s counter
     and none on any other."""
     after = counters()
@@ -391,6 +421,63 @@ def lane_sass_report(source, obj=None):
         report[key] = {"instr_per_cell": n / k, "cells": k, "instr": n,
                        "ops": hist}
     return report
+
+
+# K5's kernels and K2's, by source: stats_tile_kernel<B2> (the one-tile
+# kernel) and stats_tiled_kernel<B2>; packed_counts_kernel<HAS_NM>
+_COUNT_KERNELS = {
+    "stats_hist.cu": re.compile(r"(stats_tiled?)_kernelILb([01])E"),
+    "packed_counts.cu": re.compile(r"(packed_counts)_kernelILb([01])E"),
+}
+
+
+def count_sass_report(source, obj=None):
+    """``{(kernel, flag): {"instr_per_base", "bases", "instr", "ops"}}``
+    for the hot loop of each kernel of ``source`` in ``obj`` (default: the
+    paths' built library's object), read with ``cuobjdump --dump-sass``:
+    K5's (``stats_hist.cu``: the loop that holds the tally's ``ATOMS``, one
+    a base; flag: the 2-bit mode) and K2's (``packed_counts.cu``: the loop
+    that holds its ``POPC``, five a 16-base word with the N plane, four
+    without; flag: the N plane).  Static counts, as
+    :func:`lane_sass_report`'s.  Empty when cuobjdump or the object is
+    missing."""
+    if obj is None:
+        obj = os.path.join(_build.BUILD_DIR, _build.build_key(),
+                           source + ".o")
+    pattern = _COUNT_KERNELS[source]
+    need = "ATOMS" if source == "stats_hist.cu" else "POPC"
+    report = {}
+    for name, body in probe.sass_functions(obj).items():
+        m = pattern.search(name)
+        hist = probe._hot_loop(body, need=need) if m else None
+        if not hist:
+            continue
+        key = (m.group(1), m.group(2) == "1")
+        if need == "ATOMS":
+            bases = hist["ATOMS"]
+        else:
+            bases = 16 * hist["POPC"] // (5 if key[1] else 4)
+        n = sum(hist.values())
+        report[key] = {"instr_per_base": n / bases, "bases": bases,
+                       "instr": n, "ops": hist}
+    return report
+
+
+def device_ms(fn, reps, kernel):
+    """Mean device milliseconds of the launches of kernels whose name holds
+    ``kernel`` over ``reps`` calls of ``fn`` after one warm-up call
+    (``torch.profiler``: the kernels alone, without the host's time
+    between launches); None when the profiler sees no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start) / 1e3
+             for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(spans) / len(spans) if spans else None
 
 
 def k4_edge_adapter(H, table):
@@ -697,6 +784,43 @@ def main():
         "align_unpacked": sass["align_unpacked.cu"].get(
             (True, *align_unpacked_cuda.k4_pick(len(SMALL_RNA))), {}).get(
                 "instr_per_cell")}
+    # K5's and K2's hot loops: SASS instructions a base; the kernels line
+    # takes the one-tile kernel's (both modes), the tiled kernel's ASCII
+    # mode and K2's with the N plane
+    count_sass = {}
+    for src in ("stats_hist.cu", "packed_counts.cu"):
+        for key_, r_ in sorted(count_sass_report(src).items()):
+            count_sass[key_] = r_
+            print("  %s %s %s=%d: %d SASS instructions a pass of %d bases, "
+                  "%.2f a base" % (src, key_[0], "B2" if src == "stats_hist.cu"
+                                   else "HAS_NM", key_[1], r_["instr"],
+                                   r_["bases"], r_["instr_per_base"]),
+                  flush=True)
+    for k_, key_ in (("stats_hist", ("stats_tile", False)),
+                     ("stats_hist_b2", ("stats_tile", True)),
+                     ("stats_hist_tiled", ("stats_tiled", False)),
+                     ("packed_counts", ("packed_counts", True))):
+        cell_instr[k_] = count_sass.get(key_, {}).get("instr_per_base")
+    # K5's route and the one-tile kernel's plan: the library's equal the
+    # wrapper's mirror (the CPU tests' model runs the mirror)
+    for B_, L_, W_, b2_ in ((CHUNK, 128, 128, False), (CHUNK, 160, 160, False),
+                            (CHUNK, 128, 32, True), (1, 1, 1, False),
+                            (5001, 33, 9, True), (8192, 301, 301, False),
+                            (300, 100, 161, True), (10 ** 7, 4, 4, False)):
+        lp_ = stats_cuda.library_plan(B_, L_, W_, b2_)
+        got_ = ((lp_["blocks"], lp_["per"], lp_["R"], lp_["P"], lp_["smem"])
+                if lp_["tile"] else None)
+        want_ = (stats_cuda.k5_plan(B_, L_, W_, lp_["active"], lp_["optin"])
+                 if stats_cuda.tile_ok(L_, W_) else None)
+        if got_ != want_:
+            fail("K5 plan at B=%d L=%d W=%d b2=%s: library %s, wrapper %s"
+                 % (B_, L_, W_, b2_, got_, want_))
+    lp_ = stats_cuda.library_plan(CHUNK, 128, 128, False)
+    print("  K5's route and plan in the library equal the wrapper's; at "
+          "%d x 128: %d clusters of %d resident, %d blocks of %d reads, %d "
+          "reads a stage, %d B of shared memory a block (opt-in %d)"
+          % (CHUNK, lp_["active"], stats_cuda.K5_CLUSTER, lp_["blocks"],
+             lp_["per"], lp_["R"], lp_["smem"], lp_["optin"]), flush=True)
     # K4's gate and (G, K) picks: the library's equal the wrapper's
     lib = _build.library()
     for H_ in range(1, 140):
@@ -742,7 +866,9 @@ def main():
         return got
 
     def k2_check(label, b2w_, nmw_, l_):
+        before = counters()
         got = dict(zip(("worst", "ncnt"), counts_cuda.packed_counts(b2w_, nmw_, l_)))
+        route_check(label, before, "packed_counts")
         want = dict(zip(("worst", "ncnt"),
                         counts_cuda.packed_counts_plain(b2w_, nmw_, l_)))
         torch.cuda.synchronize()
@@ -774,14 +900,17 @@ def main():
         return got, want
 
     def k5_check(label, codes_, q_, l_, b2=False):
+        before = counters()
         if b2:
-            k = "stats_hist_b2"
             got = stats_cuda.stats_hist_b2(codes_, q_, l_)
             want = stats_cuda.stats_hist_b2_plain(codes_, q_, l_)
         else:
-            k = "stats_hist"
             got = stats_cuda.stats_hist(codes_, q_, l_)
             want = stats_cuda.stats_hist_plain(codes_, q_, l_)
+        k = ("stats_hist_tiled"
+             if not stats_cuda.tile_ok(q_.shape[1], codes_.shape[1])
+             else "stats_hist_b2" if b2 else "stats_hist")
+        route_check(label, before, k)
         torch.cuda.synchronize()
         errs[k] = max(errs[k], compare(label, {"hist": got.flatten()},
                                        {"hist": want.flatten()}, ("hist",)))
@@ -823,6 +952,19 @@ def main():
     a_b2w, a_nmw, a_l = packed(*adversarial(rng, 2048, 511, adapter, 0.03), dev)
     k_packed_check("K1 adversarial H=17 L=511", a_b2w, a_nmw, a_l, adapter, 511)
     k2_check("K2 adversarial L=511", a_b2w, a_nmw, a_l)
+    # K2 at its word edges: lengths 0, 1, 15-17, 31-33, the words' end and
+    # past it, N bits at positions 0, 15, 16 and 31 of each 32 on every
+    # fifth read, with and without the N plane
+    edge_bits = (1 << 7) | (1 << 8) | (1 << 23) | (1 << 24)
+    for L_ in (64, 150, 600):
+        e_b2w, e_nmw, e_l = packed(*adversarial(rng, 3001, L_, adapter, 0.05),
+                                   dev)
+        e_nmw[:, 2::5] |= edge_bits
+        W16_ = e_b2w.shape[0]
+        e_l[:11] = torch.tensor([0, 1, 15, 16, 17, 31, 32, 33, W16_ * 16,
+                                 W16_ * 16 + 7, -3], dtype=torch.int32)
+        k2_check("K2 edges L=%d B=3001 N plane" % L_, e_b2w, e_nmw, e_l)
+        k2_check("K2 edges L=%d B=3001" % L_, e_b2w, None, e_l)
 
     # K3 on the TruSeq lane's first chunk (the masker's plane as the N
     # plane, flags on), its no-N-plane shortcut, and H=72 at L=600
@@ -937,6 +1079,35 @@ def main():
     l301_l = rng.integers(0, 302, 8192).astype(np.int32)
     k5_check("K5 random 8192 x 301",
              *(torch.from_numpy(a).to(dev) for a in (l301_b, l301_q, l301_l)))
+    # K5 at the edges of its routes and tiles (K5_EDGE_L) in both modes, on
+    # lengths 0, 1, L, past L and negative among random ones, and with the
+    # quals at an odd address (the producer copies the bytes outside the
+    # array's 16-byte chunks)
+    for L_ in K5_EDGE_L:
+        e_b = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(5001, L_))
+        e_q = rng.integers(-20, 100, size=(5001, L_)).astype(np.int8)
+        e_l = rng.integers(0, L_ + 1, 5001).astype(np.int32)
+        e_l[:5] = [0, 1, L_, L_ + 9, -4]
+        e_b2 = native.pack2(e_b, e_q, (), False)[0]
+        e_b, e_q, e_l, e_b2 = (torch.from_numpy(a).to(dev)
+                               for a in (e_b, e_q, e_l, e_b2))
+        k5_check("K5 edge L=%d B=5001" % L_, e_b, e_q, e_l)
+        k5_check("K5b edge L=%d B=5001" % L_, e_b2, e_q, e_l, b2=True)
+        odd = torch.empty(e_q.numel() + 1, dtype=torch.int8,
+                          device=dev)[1:].view(e_q.shape)
+        odd.copy_(e_q)
+        k5_check("K5 edge L=%d B=5001 quals at an odd address" % L_, e_b, odd,
+                 e_l)
+    # more reads than the resident blocks may tally into 16-bit halves
+    # (clusters x 4 x 65,535), all on one base and one quality: every
+    # count of a position lands in one bin
+    lp_ = stats_cuda.library_plan(CHUNK, 4, 4, False)
+    B_ = lp_["active"] * stats_cuda.K5_CLUSTER * stats_cuda.K5_CAP + 4097
+    o_b = torch.full((B_, 4), ord("A"), dtype=torch.uint8, device=dev)
+    o_q = torch.full((B_, 4), 37, dtype=torch.int8, device=dev)
+    o_l = torch.full((B_,), 4, dtype=torch.int32, device=dev)
+    k5_check("K5 %d reads on one bin (16-bit overflow)" % B_, o_b, o_q, o_l)
+    del o_b, o_q, o_l
     s_b2 = torch.from_numpy(native.pack2(s_np[0], s_np[1], (), False)[0]).to(dev)
     k5_check("K5b lane %d x %d, 2-bit codes" % tuple(s_q.shape), s_b2, s_q,
              s_l, b2=True)
@@ -1241,10 +1412,23 @@ def main():
         n_valid * COUNT_OPS_PER_BASE, n_valid // 4 + n_valid + fixed,
         "%d reads x %d bp (L=%d), 2-bit codes" % (CHUNK, READ_LEN,
                                                   s_b.shape[1]))
+    # the tiled kernel on the 8192 x 301 batch of phase 3
+    n301 = int(np.clip(l301_l, 0, 301).sum())
+    l301 = [torch.from_numpy(a).to(dev) for a in (l301_b, l301_q, l301_l)]
+    shapes["stats_hist_tiled"] = (
+        lambda: stats_cuda.stats_hist(*l301),
+        lambda: stats_cuda.stats_hist_plain(*l301),
+        n301 * COUNT_OPS_PER_BASE,
+        2 * n301 + 4 * 8192 + 4 * 301 * stats_cuda.F,
+        "8192 reads x 301 (L=301)")
     library = {k: None for k in shapes}
     for k in ("stats_hist", "stats_hist_b2"):
         library[k] = cuda_ms(
             lambda: torch.bincount(flat, minlength=minlength), 10)
+    flat301 = stats_cuda.flat_ids(stats_cuda.ascii_slots(l301[0]), l301[1],
+                                  l301[2])
+    library["stats_hist_tiled"] = cuda_ms(
+        lambda: torch.bincount(flat301, minlength=301 * stats_cuda.F), 10)
     # P: its timed variant from the probe's own run, the plain version at
     # the same shape; its plane ops (one instruction each in its SASS)
     res_, case_, dpx_, h_, b_ = PROBE_TIMED
@@ -1264,9 +1448,10 @@ def main():
     at_h = {"align_packed12": len(adapter), "align_packed": len(TRUSEQ),
             "align_unpacked": len(SMALL_RNA),
             "align_unpacked_serial": len(h128), "plane_probe": h_}
-    ms, plain_ms, bound, old_bound, p_rate = ({} for _ in range(5))
+    ms, plain_ms, bound, old_bound, p_rate, dms = ({} for _ in range(6))
     for k, (fn, plain, ops, nbytes, shape) in shapes.items():
         ms[k] = timed[0]["ms"] if fn is None else cuda_ms(fn, 10)
+        dms[k] = None if fn is None else device_ms(fn, 10, DEVICE_NAMES[k])
         plain_ms[k] = cuda_ms(plain, 1 if fn is None else 2)
         bound[k] = roofline(ops, nbytes, ISSUE_LANES * clock_hz)
         old_bound[k] = roofline(ops, nbytes, INT32_LANES * clock_hz)
@@ -1281,6 +1466,9 @@ def main():
                  else "torch.bincount %.3f ms" % library[k],
                  bound[k][0], bound[k][1], p_rate[k], old_bound[k][0],
                  old_bound[k][1], shape, card), flush=True)
+    print("  device ms (torch.profiler, the kernel alone): %s on %s" % (
+        ", ".join("%s %s" % (k, "n/a" if v is None else "%.4f" % v)
+                  for k, v in dms.items()), card), flush=True)
     # K4 at path (c)'s shape: the headline lane's first chunk as ASCII
     # against the headline adapter, held against the plain version once
     hl = codec.parse(data[:record_cut(data, CHUNK)], filetype=codec.FASTQ_ONLY,
@@ -1311,7 +1499,7 @@ def main():
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
          "library_ms": library[k], "assumed_bound_ms": old_bound[k][0],
          "p_rate_ms": p_rate[k], "smem_state_ms": None,
-         "sass_instr_per_cell": cell_instr.get(k)}
+         "sass_instr_per_cell": cell_instr.get(k), "device_ms": dms.get(k)}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

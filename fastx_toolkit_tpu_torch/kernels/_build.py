@@ -140,6 +140,9 @@ def library() -> ctypes.CDLL:
             lib.fx_stats_hist.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp,
                                           vp]
             lib.fx_stats_hist.restype = ci
+            lib.fx_stats_hist_plan.argtypes = [ci, ci, ci, ci,
+                                               ctypes.POINTER(ci)]
+            lib.fx_stats_hist_plan.restype = ci
             _lib = lib
     return _lib
 

@@ -13,9 +13,17 @@ for CUDA tensors and run :func:`stats_hist_plain` /
 :func:`stats_hist_b2_plain` (flat bin ids and one ``torch.bincount``) for
 CPU tensors.  There is no fallback: a CUDA tensor launches the kernel or
 raises.  Any B and any L (no tile padding).
+
+The library takes a batch on one of two routes, each counted on its own
+counter: the one-tile kernel for ``L <= K5_LMAX`` and rows of at most
+``K5_LMAX`` bytes (:func:`tile_ok`; :data:`launches`,
+:data:`b2_launches`), whose schedule :func:`k5_plan` mirrors, and the
+tiled kernel for any other shape (:data:`tiled_launches`).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,9 +33,75 @@ from . import _build
 
 F = NSLOTS * NBINS  # 654 bins per position
 
-# kernel launches by stats_hist and stats_hist_b2 (reset to 0 to count a run)
+# kernel launches (reset to 0 to count a run): the one-tile kernel by
+# stats_hist and by stats_hist_b2, and the tiled kernel by either
 launches = 0
 b2_launches = 0
+tiled_launches = 0
+
+# the one-tile kernel's constants (constexprs of csrc/stats_hist.cu, held
+# equal by tests/test_torch_stats.py): the widest L and 2-bit row it takes,
+# the most reads a block tallies into its 16-bit counters, its tally warps,
+# ring stages, the most reads a stage, the fewest reads worth a block, the
+# blocks of a cluster, and the shared memory of its slot table
+K5_LMAX = 160
+K5_CAP = 65535
+K5_WARPS = 31
+K5_STAGES = 2
+K5_RMAX = 256
+K5_MIN_PER = 64
+K5_CLUSTER = 4
+K5_LUT_BYTES = 512
+FW = F // 2  # 16-bit bin pairs a position
+
+
+def tile_ok(L: int, W: int) -> bool:
+    """True when the one-tile kernel takes a batch of ``L`` positions and
+    rows of ``W`` code bytes."""
+    return L <= K5_LMAX and W <= K5_LMAX
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def k5_plan(B: int, L: int, W: int, active: int, optin: int):
+    """The one-tile kernel's schedule (``make_plan`` in the .cu) for ``B``
+    reads with ``active`` clusters resident and ``optin`` bytes of shared
+    memory a block: ``(blocks, per, R, P, smem)`` — blocks (a multiple of
+    the cluster), reads a block, reads a stage, the tile's position stride
+    and a block's shared memory; None if a stage cannot hold one read."""
+    P = -(-L // 32) * 32
+    tile = FW * P * 4 + K5_LUT_BYTES + 16 * K5_STAGES  # and the barriers
+
+    def stage(r):
+        return (_align16(r * W + 31) + _align16(r * L + 31)
+                + _align16(4 * r + 31))
+
+    R = K5_RMAX
+    while R > 0 and K5_STAGES * stage(R) > optin - tile:
+        R -= 1
+    if R < 1:
+        return None
+    if R >= K5_WARPS:
+        R -= R % K5_WARPS
+    blocks = max(1, min(active * K5_CLUSTER, -(-B // K5_MIN_PER)))
+    per = max(1, min(K5_CAP, -(-B // blocks)))
+    blocks = -(-B // per)
+    blocks = -(-blocks // K5_CLUSTER) * K5_CLUSTER
+    R = min(R, per)
+    return blocks, per, R, P, tile + K5_STAGES * stage(R)
+
+
+def library_plan(B: int, L: int, W: int, b2: bool):
+    """The library's plan for a launch on the current CUDA device
+    (``fx_stats_hist_plan``): ``{"tile", "active", "blocks", "per", "R",
+    "P", "smem", "optin"}``; ``tile`` is False on the tiled route."""
+    plan = (ctypes.c_int * 8)()
+    _build.check(_build.library().fx_stats_hist_plan(B, L, W, int(b2), plan),
+                 "fx_stats_hist_plan")
+    return dict(zip(("tile", "active", "blocks", "per", "R", "P", "smem",
+                     "optin"), [bool(plan[0])] + list(plan[1:])))
 
 
 def _check(codes, quals, lengths, what: str):
@@ -85,7 +159,7 @@ def stats_hist_b2_plain(b2, quals, lengths):
 
 
 def _launch(b2_mode: bool, codes, quals, lengths):
-    global launches, b2_launches
+    global launches, b2_launches, tiled_launches
     B, L = quals.shape
     out = torch.zeros((L, NSLOTS, NBINS), dtype=torch.int32,
                       device=codes.device)
@@ -97,7 +171,9 @@ def _launch(b2_mode: bool, codes, quals, lengths):
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    if b2_mode:
+    if not tile_ok(L, codes.shape[1]):
+        tiled_launches += 1
+    elif b2_mode:
         b2_launches += 1
     else:
         launches += 1

@@ -114,9 +114,10 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
 
 
-def _hot_loop(lines):
+def _hot_loop(lines, need=None):
     """Opcode counts of the largest innermost loop in one function's SASS
-    (the span from a backward branch's target to the branch)."""
+    (the span from a backward branch's target to the branch), among those
+    that hold an instruction ``need`` when it is given."""
     instrs, labels, branches = [], {}, []
     pending = []
     for line in lines:
@@ -144,6 +145,9 @@ def _hot_loop(lines):
     inner = [(a, b) for a, b in loops
              if not any((c, d) != (a, b) and a <= c and d <= b
                         for c, d in loops)]
+    if need is not None:
+        inner = [(a, b) for a, b in inner
+                 if any(a <= addr <= b and op == need for addr, op in instrs)]
     if not inner:
         return None
     best = max(inner, key=lambda s: s[1] - s[0])

@@ -430,6 +430,13 @@ def _stats_operands(seed, B, L, alphabet=b"ACGTN", qlo=2, qhi=41,
     return bases, quals, lengths
 
 
+def _k5_route_counters():
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    return (stats_cuda.launches, stats_cuda.b2_launches,
+            stats_cuda.tiled_launches)
+
+
 @pytest.mark.parametrize("B,L,kw", [
     (262144, 128, {}),
     (262144, 160, {}),
@@ -442,11 +449,12 @@ def test_k5_matches_plain_on_card(dev, B, L, kw):
 
     bases, quals, lengths = (torch.from_numpy(a).to(dev)
                              for a in _stats_operands(B + L, B, L, **kw))
-    before = stats_cuda.launches
+    before = _k5_route_counters()
     got = stats_cuda.stats_hist(bases, quals, lengths)
     want = stats_cuda.stats_hist_plain(bases, quals, lengths)
     torch.cuda.synchronize()
-    assert stats_cuda.launches == before + 1
+    moved = [a - b for a, b in zip(_k5_route_counters(), before)]
+    assert moved == ([1, 0, 0] if stats_cuda.tile_ok(L, L) else [0, 0, 1])
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert int(got.sum()) == int(lengths.clamp(max=L).sum())
 
@@ -460,14 +468,100 @@ def test_k5b_matches_plain_on_card(dev, B, L):
     b2, _ = pack_batch2(bases, quals, PipelineConfig(), n_plane=False)
     b2, quals, lengths = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                           for a in (b2, quals, lengths))
-    before = stats_cuda.b2_launches
+    before = _k5_route_counters()
     got = stats_cuda.stats_hist_b2(b2, quals, lengths)
     want = stats_cuda.stats_hist_b2_plain(b2, quals, lengths)
     torch.cuda.synchronize()
-    assert stats_cuda.b2_launches == before + 1
+    moved = [a - b for a, b in zip(_k5_route_counters(), before)]
+    assert moved == ([0, 1, 0] if stats_cuda.tile_ok(L, b2.shape[1])
+                     else [0, 0, 1])
     assert torch.equal(got, want)
     assert torch.equal(got, stats_cuda.stats_hist(
         torch.from_numpy(bases).to(dev), quals, lengths))
+
+
+@pytest.mark.parametrize("b2", [False, True])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 64, 65, 128, 160, 301])
+def test_k5_edges_on_card(dev, L, b2):
+    """K5 at the edges of its routes and tiles (the one-tile kernel up to
+    L = 160, the tiled kernel past it), lengths 0, 1, L, past L and
+    negative among random ones, and the quals at an odd address; each call
+    on its route's counter."""
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    bases, quals, lengths = _stats_operands(L * 3 + b2, 5001, L,
+                                            alphabet=b"ACGT", qlo=-20,
+                                            qhi=100)
+    lengths[:5] = [0, 1, L, L + 9, -4]
+    codes = (native.pack2(bases, quals, (), False)[0] if b2 else bases)
+    codes, quals, lengths = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in (codes, quals, lengths))
+    odd = torch.empty(quals.numel() + 1, dtype=torch.int8,
+                      device=dev)[1:].view(quals.shape)
+    odd.copy_(quals)
+    tiled = not stats_cuda.tile_ok(L, codes.shape[1])
+    kernel = stats_cuda.stats_hist_b2 if b2 else stats_cuda.stats_hist
+    plain = stats_cuda.stats_hist_b2_plain if b2 else stats_cuda.stats_hist_plain
+    want = plain(codes, quals, lengths)
+    for q in (quals, odd):
+        before = _k5_route_counters()
+        got = kernel(codes, q, lengths)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip(_k5_route_counters(), before)]
+        assert moved == ([0, 0, 1] if tiled else [0, 1, 0] if b2
+                         else [1, 0, 0])
+        assert torch.equal(got, want)
+
+
+def test_k5_counter_overflow_one_bin_on_card(dev):
+    """More reads than the resident blocks may tally into 16-bit halves
+    (clusters x 4 x 65,535), all on one base and one quality."""
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    plan = stats_cuda.library_plan(262144, 4, 4, False)
+    B = plan["active"] * stats_cuda.K5_CLUSTER * stats_cuda.K5_CAP + 4097
+    bases = torch.full((B, 4), ord("A"), dtype=torch.uint8, device=dev)
+    quals = torch.full((B, 4), 37, dtype=torch.int8, device=dev)
+    lengths = torch.full((B,), 4, dtype=torch.int32, device=dev)
+    got = stats_cuda.stats_hist(bases, quals, lengths)
+    torch.cuda.synchronize()
+    assert got[:, 1, 37 + 15].tolist() == [B] * 4
+    assert int(got.sum()) == 4 * B
+
+
+@pytest.mark.parametrize("B,L,W,b2", [
+    (262144, 128, 128, False), (262144, 160, 160, False),
+    (262144, 128, 32, True), (1, 1, 1, False), (5001, 33, 9, True),
+    (8192, 301, 301, False), (300, 100, 161, True), (10 ** 7, 4, 4, False)])
+def test_k5_plan_in_the_library_equals_the_wrappers(dev, B, L, W, b2):
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    lp = stats_cuda.library_plan(B, L, W, b2)
+    assert lp["tile"] == stats_cuda.tile_ok(L, W)
+    if lp["tile"]:
+        assert (lp["blocks"], lp["per"], lp["R"], lp["P"], lp["smem"]) == \
+            stats_cuda.k5_plan(B, L, W, lp["active"], lp["optin"])
+        assert lp["smem"] <= lp["optin"]
+
+
+@pytest.mark.parametrize("with_nm", [False, True])
+@pytest.mark.parametrize("L", [64, 150, 600])
+def test_k2_edges_on_card(dev, L, with_nm):
+    """K2 at its word edges: lengths 0, 1, 15-17, 31-33, the words' end,
+    past it and negative, N bits at positions 0, 15, 16 and 31 of each 32."""
+    b2w, nmw, lengths = _operands(L + 7, 3001, L, 0.05, ADAPTER, dev)
+    nmw[:, 2::5] |= (1 << 7) | (1 << 8) | (1 << 23) | (1 << 24)
+    W16 = b2w.shape[0]
+    lengths[:11] = torch.tensor([0, 1, 15, 16, 17, 31, 32, 33, W16 * 16,
+                                 W16 * 16 + 7, -3], dtype=torch.int32)
+    if not with_nm:
+        nmw = None
+    before = counts_cuda.launches
+    worst, ncnt = counts_cuda.packed_counts(b2w, nmw, lengths)
+    assert counts_cuda.launches == before + 1
+    w_plain, n_plain = counts_cuda.packed_counts_plain(b2w, nmw, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(worst, w_plain) and torch.equal(ncnt, n_plain)
 
 
 @pytest.mark.parametrize("argv", [["-Q", "33"], ["-Q", "33", "-N"]])

@@ -297,3 +297,51 @@ def test_k4_sass_report_counts_cells(monkeypatch):
     assert set(rep) == {(True, 4, 6)}
     assert rep[(True, 4, 6)]["cells"] == 6
     assert rep[(True, 4, 6)]["instr_per_cell"] == 1.0
+
+
+def _loops_body(first, second):
+    """A SASS body of two innermost loops, opcodes ``first`` and then
+    ``second`` (one instruction each, then the loop's branch)."""
+    lines, addr = [], 0
+    for ops in (first, second):
+        top = addr
+        for op in ops:
+            lines.append("        /*%04x*/                   %s R4, R4 ;"
+                         % (addr, op))
+            addr += 16
+        lines.append("        /*%04x*/               @!P0 BRA 0x%x ;"
+                     % (addr, top))
+        addr += 16
+    lines.append("        /*%04x*/                   EXIT ;" % addr)
+    return lines
+
+
+def test_count_sass_report_counts_bases(monkeypatch):
+    """K5's and K2's SASS reading in ``chip_smoke.py``: the loop that holds
+    the tally's ATOMS (one a base) or K2's POPC (five a 16-base word with
+    the N plane, four without), not a larger loop beside it; the mangled
+    names give (kernel, flag)."""
+    import chip_smoke
+
+    body = _loops_body(["LDS", "IMAD", "ATOMS", "LDS", "IMAD", "ATOMS"],
+                       ["LDS"] * 20)
+    assert probe._hot_loop(body) == {"LDS": 20, "BRA": 1}
+    assert probe._hot_loop(body, need="ATOMS") == {"LDS": 2, "IMAD": 2,
+                                                   "ATOMS": 2, "BRA": 1}
+    tile = ("_ZN46_GLOBAL__N__x_13_stats_hist_cu_y17stats_tile_kernelILb1EEEv"
+            "PKhPKaPKiiiiNS_4PlanEPi")
+    tiled = ("_ZN46_GLOBAL__N__x_13_stats_hist_cu_y18stats_tiled_kernelILb0EE"
+             "EvPKhPKaPKiiiiiPi")
+    monkeypatch.setattr(probe, "sass_functions",
+                        lambda obj: {tile: body, tiled: body})
+    rep = chip_smoke.count_sass_report("stats_hist.cu", "unused.o")
+    assert set(rep) == {("stats_tile", True), ("stats_tiled", False)}
+    assert rep[("stats_tile", True)]["bases"] == 2
+    assert rep[("stats_tile", True)]["instr_per_base"] == 3.5
+    k2 = ("_ZN49_GLOBAL__N__x_16_packed_counts_cu_y20packed_counts_kernel"
+          "ILb1EEEvPKjS2_PKiiiPiS5_")
+    k2_body = _loops_body(["POPC"] * 10 + ["LOP3"] * 21, ["LDS"] * 40)
+    monkeypatch.setattr(probe, "sass_functions", lambda obj: {k2: k2_body})
+    rep = chip_smoke.count_sass_report("packed_counts.cu", "unused.o")
+    assert rep[("packed_counts", True)]["bases"] == 32
+    assert rep[("packed_counts", True)]["instr_per_base"] == 1.0

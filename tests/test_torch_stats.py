@@ -178,3 +178,186 @@ def test_renderers_match_reference(is_fastq, qlo, qhi):
         assert (got.qsum < 0).any() or qhi > 0
     assert stats.render_old_format(got) == ref_stats.render_old_format(ref)
     assert stats.render_new_format(got) == ref_stats.render_new_format(ref)
+
+
+# K5's schedule (csrc/stats_hist.cu), modelled in numpy
+H100_OPTIN = 232448  # opt-in shared memory a block on an H100
+CU = os.path.join(ROOT, "fastx_toolkit_tpu_torch", "csrc", "stats_hist.cu")
+
+
+def _flat_bytes(a):
+    return np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+
+
+def _staged(flat, lo, hi, base=0):
+    """A stage's copy of bytes [lo, hi) of ``flat`` (an array at address
+    ``base``): the 16-byte chunks that hold the span, and the offset of
+    byte ``lo`` in them."""
+    a0 = (base + lo) & ~15
+    end = -(-(base + hi) // 16) * 16
+    buf = np.zeros(end - a0, np.uint8)
+    src_lo = max(a0 - base, 0)
+    src_hi = min(end - base, len(flat))
+    buf[src_lo + base - a0:src_hi + base - a0] = flat[src_lo:src_hi]
+    return buf, base + lo - a0
+
+
+def k5_tile_model(codes, quals, lengths, b2, active, base=(0, 0, 0)):
+    """The one-tile kernel: the plan's read ranges, each block's stages
+    copied from aligned chunks (arrays at addresses ``base``), its tile of
+    16-bit bin pairs [327][P], and each cluster's sums over its blocks'
+    tiles, a slice of the words a block."""
+    B, L = quals.shape
+    W = codes.shape[1]
+    blocks, per, R, P, smem = stats_cuda.k5_plan(B, L, W, active, H100_OPTIN)
+    assert smem <= H100_OPTIN and per <= stats_cuda.K5_CAP
+    assert blocks % stats_cuda.K5_CLUSTER == 0
+    fc, fq = _flat_bytes(codes), _flat_bytes(quals)
+    fl = _flat_bytes(lengths.astype(np.int32))
+    lut = BaseCode.STATS_INDEX.astype(np.int64) * 109
+    tiles = np.zeros((blocks, stats_cuda.FW * P), np.uint32)
+    for blk in range(blocks):
+        r0 = min(B, blk * per)
+        r1 = min(B, r0 + per)
+        for ra in range(r0, r1, R):
+            rb = min(r1, ra + R)
+            sc, oc = _staged(fc, ra * W, rb * W, base[0])
+            sq, oq = _staged(fq, ra * L, rb * L, base[1])
+            sl, ol = _staged(fl, ra * 4, rb * 4, base[2])
+            n = rb - ra
+            c = sc[oc:oc + n * W].reshape(n, W).astype(np.int64)
+            q = sq[oq:oq + n * L].view(np.int8).reshape(n, L).astype(np.int64)
+            ln = np.minimum(sl[ol:ol + 4 * n].view(np.int32), L)
+            pos = np.arange(L)
+            if b2:
+                slot = ((c[:, pos >> 2] >> (6 - 2 * (pos & 3))) & 3) + 1
+                ids = slot * 109
+            else:
+                ids = lut[c]
+            ids = ids + np.clip(q + 15, 0, 108)
+            live = pos[None, :] < ln[:, None]
+            col = np.broadcast_to(pos, (n, L))[live]
+            ids = ids[live]
+            np.add.at(tiles[blk], (ids >> 1) * P + col,
+                      (np.uint32(1) << (16 * (ids & 1)).astype(np.uint32)))
+    out = np.zeros((L, 654), np.int64)
+    C = stats_cuda.K5_CLUSTER
+    for c0 in range(0, blocks, C):
+        group = tiles[c0:c0 + C]
+        for rank in range(C):
+            w0, w1 = stats_cuda.FW * rank // C, stats_cuda.FW * (rank + 1) // C
+            words = group[:, w0 * P:w1 * P].reshape(C, w1 - w0, P)[:, :, :L]
+            lo = (words & np.uint32(0xFFFF)).astype(np.int64).sum(axis=0)
+            hi = (words >> np.uint32(16)).astype(np.int64).sum(axis=0)
+            out[:, 2 * w0:2 * w1:2] += lo.T
+            out[:, 2 * w0 + 1:2 * w1:2] += hi.T
+    return out.astype(np.int32).reshape(L, 6, 109)
+
+
+def k5_tiled_model(codes, quals, lengths, b2, sms):
+    """The tiled kernel: position tiles of 32 by read ranges, 32-bit
+    counters, each tile's non-zero bins added to the output."""
+    B, L = quals.shape
+    tiles = -(-L // 32)
+    ranges = min(-(-2 * sms // tiles), -(-B // 16))
+    per = -(-B // ranges)
+    plain = stats_cuda.stats_hist_b2_plain if b2 else stats_cuda.stats_hist_plain
+    out = np.zeros((L, 6, 109), np.int32)
+    for t in range(tiles):
+        cols = slice(32 * t, min(L, 32 * t + 32))
+        for r0 in range(0, B, per):
+            rows = slice(r0, min(B, r0 + per))
+            part = plain(*_t(codes[rows], quals[rows],
+                               np.clip(lengths[rows], None, L)))
+            out[cols] += part.numpy()[cols]
+    return out
+
+
+def _k5_cases():
+    cases = []
+    for L in (1, 31, 32, 33, 64, 65, 128, 160, 301):
+        for b2 in (False, True):
+            cases.append((L, b2))
+    return cases
+
+
+@pytest.mark.parametrize("L,b2", _k5_cases())
+def test_k5_schedule_matches_reference_and_plain(L, b2):
+    """The numpy model of the new kernel's schedule (the one-tile kernel up
+    to L = 160, the tiled kernel beyond) against the Pallas kernel in
+    interpret mode and the plain version, exactly; lengths 0, 1, L, past L
+    and negative among random ones, qualities outside [-15, 93] and bytes
+    outside ACGTN; arrays at unaligned addresses, and a few clusters
+    resident so that blocks take several stages."""
+    B = 1024
+    bases, quals, lengths = _batch(L * 7 + b2, B, L,
+                                   alphabet=b"ACGT" if b2 else b"ACGTNacgtnX.",
+                                   qlo=-40, qhi=120)
+    lengths[:5] = [0, 1, L, L + 9, -4]
+    if b2:
+        cfg0 = PipelineConfig(with_filter=False, with_qtrim=False,
+                              with_mask=False)
+        codes, _ = pack_batch2(bases, quals, cfg0, n_plane=False)
+        codes = np.asarray(codes)
+        want = np.asarray(stats_hist_pallas_b2(codes, quals, lengths,
+                                               tile_b=128, interpret=True))
+        plain = stats_cuda.stats_hist_b2_plain(*_t(codes, quals, lengths))
+    else:
+        codes = bases
+        want = np.asarray(stats_hist_pallas(bases, quals, lengths,
+                                            tile_b=128, interpret=True))
+        plain = stats_cuda.stats_hist_plain(*_t(bases, quals, lengths))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    if stats_cuda.tile_ok(L, codes.shape[1]):
+        for active, base in ((1, (0, 0, 0)), (3, (5, 13, 4))):
+            got = k5_tile_model(codes, quals, lengths, b2, active, base)
+            np.testing.assert_array_equal(got, want, err_msg=str(active))
+    else:
+        assert L > stats_cuda.K5_LMAX
+        np.testing.assert_array_equal(
+            k5_tiled_model(codes, quals, lengths, b2, 132), want)
+
+
+def test_k5_counter_cap_one_bin():
+    """More reads than one cluster's blocks may tally (4 x 65,535), all in
+    one bin: the plan caps a block at 65,535 reads and adds blocks, so no
+    16-bit half carries."""
+    B = 4 * stats_cuda.K5_CAP + 1000
+    bases = np.full((B, 2), ord("A"), np.uint8)
+    quals = np.full((B, 2), 37, np.int8)
+    lengths = np.full(B, 2, np.int32)
+    blocks, per, *_ = stats_cuda.k5_plan(B, 2, 2, 1, H100_OPTIN)
+    assert per == stats_cuda.K5_CAP and blocks == 8
+    got = k5_tile_model(bases, quals, lengths, False, 1)
+    want = stats_cuda.stats_hist_plain(*_t(bases, quals, lengths)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[:, 1, 37 + 15].tolist() == [B, B]
+
+
+def test_k5_plan_shapes():
+    """The phase-3 shapes' plans on an H100 with 33 clusters of 4 resident:
+    one block an SM, every tally warp the same reads a stage."""
+    plan = stats_cuda.k5_plan(262144, 128, 128, 33, H100_OPTIN)
+    assert plan[:4] == (132, 1986, 93, 128)
+    plan = stats_cuda.k5_plan(262144, 160, 160, 33, H100_OPTIN)
+    assert plan[:4] == (132, 1986, 31, 160)
+    assert stats_cuda.k5_plan(262144, 128, 32, 33, H100_OPTIN)[2] % 31 == 0
+    assert not stats_cuda.tile_ok(161, 161) and not stats_cuda.tile_ok(100, 161)
+
+
+def test_k5_constants_match_the_kernel():
+    """The wrapper's mirror of the one-tile kernel's constants equals the
+    constexprs of csrc/stats_hist.cu."""
+    with open(CU) as fh:
+        src = fh.read()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert int(consts["LMAX"]) == stats_cuda.K5_LMAX
+    assert int(consts["CAP"]) == stats_cuda.K5_CAP
+    assert int(consts["WARPS"]) == stats_cuda.K5_WARPS
+    assert consts["THREADS"] == "32 * (WARPS + 1)"
+    assert consts["HEAD_BYTES"] == "LUT_BYTES + 16 * STAGES"
+    assert int(consts["STAGES"]) == stats_cuda.K5_STAGES
+    assert int(consts["RMAX"]) == stats_cuda.K5_RMAX
+    assert int(consts["MIN_PER"]) == stats_cuda.K5_MIN_PER
+    assert int(consts["CLUSTER"]) == stats_cuda.K5_CLUSTER
+    assert consts["LUT_BYTES"] == "256 * 2" and stats_cuda.K5_LUT_BYTES == 512
