@@ -77,9 +77,27 @@ of the JAX package:
          classic per-batch loop (K4), its ``-v`` report held against
          per-stage counts from the host replay;
    (d)   ``fastx_quality_stats -Q 33`` and ``-Q 33 -N`` on the headline
-         and the TruSeq lanes with the ``device`` engine (the default on
-         a card: K5), each held against a run with
-         ``FASTX_STATS_PATH=host`` (the native histogram; no kernel);
+         and the TruSeq lanes with the ``device`` engine
+         (``FASTX_STATS_PATH=device``: K5), each held against a run with
+         ``FASTX_STATS_PATH=host`` (the native histogram, the default; no
+         kernel);
+   (e)   ``fastx_collapser -Q 33 -v`` on a seeded 1M-read small-RNA lane
+         with miRNA-like duplication (``synth_collapse_lane_bytes``, seed
+         11), on the ``device`` engine (``FASTX_COLLAPSE_PATH=device``:
+         the sort and segment sums of ``ops/collapse.py`` on cuda
+         tensors) and the ``host`` engine (the native hash table), each held against a
+         Python dict reference ordered by ``final_order`` and named by
+         ``rank_count_column``; the collapsed FASTA collapsed again
+         (counts from the names) must come back unchanged, and
+         ``fastx_uncollapser`` on it must give the input's multiset of
+         sequences; no kernel launches;
+   (f)   the eight per-read tools on the headline lane with the headline
+         chain's options and ``-v`` (``fasta_nucleotide_changer -r`` on
+         ``fastq_to_fasta -n -r``'s output), each on the default engine
+         (the raw-line host path where the tool has one: no transform
+         runs) and with ``FASTX_LINEPATH=off`` (parse, then the
+         transform on the card: every transform call's tensors on
+         cuda), outputs and reports held equal; no kernel launches;
    (p)   the probe's entry point (``fastx_toolkit_tpu_torch.probe``'s
          ``measure``, budget 15 s): every variant timed at the DP shapes
          and the TPU's, its lines in ``probe.jsonl`` beside the build;
@@ -87,8 +105,8 @@ of the JAX package:
          0); a ``smem`` kernel whose SASS shows fewer than one shared load
          and store a plane op fails;
 5. times   — end-to-end reads/s of the headline (median of 3 runs after a
-   warm-up) and of paths (a)-(d) (one timed run each; (d) on both
-   engines), and the device time of K1-K5b beside their plain versions
+   warm-up) and of paths (a)-(f) (one timed run each; (d) and (e) on
+   both engines, (f) on both per tool), and the device time of K1-K5b beside their plain versions
    and, for K5/K5b, ``torch.bincount`` on precomputed flat ids (CUDA
    events); each kernel's bound is the larger of its device-memory bytes
    over 3.35 TB/s and its int32 operations at the card's int32 issue
@@ -131,9 +149,19 @@ from torch.profiler import ProfilerActivity, profile
 from fastx_toolkit_tpu_torch import probe, synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
 from fastx_toolkit_tpu_torch.cli.tools import (
+    fasta_nucleotide_changer,
+    fastq_masker,
+    fastq_quality_filter,
+    fastq_quality_trimmer,
+    fastq_to_fasta,
+    fastx_artifacts_filter,
     fastx_clipper,
+    fastx_collapser,
     fastx_pipeline,
     fastx_quality_stats,
+    fastx_reverse_complement,
+    fastx_trimmer,
+    fastx_uncollapser,
 )
 from fastx_toolkit_tpu_torch.cli.tools._shared import (
     BatchReader,
@@ -167,6 +195,8 @@ from fastx_toolkit_tpu_torch.kernels.probe import (
     plane_probe_plain,
 )
 from fastx_toolkit_tpu_torch.probe import cuda_ms
+from fastx_toolkit_tpu_torch.ops import collapse as collapse_ops
+from fastx_toolkit_tpu_torch.ops import transforms
 from fastx_toolkit_tpu_torch.ops.clipper import (
     adapter_cutoff_index,
     clip_cut_lengths,
@@ -184,6 +214,27 @@ HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
             "fastx_clipper -a CTGTAGGCACCATCAAT -l 5 -n | "
             "fastx_artifacts_filter")
 CLIPPER_ARGV = ["-Q", "33", "-a", SMALL_RNA.decode(), "-l", "15", "-c", "-v"]
+COLLAPSE_SEED = 11
+# path (f): the eight per-read tools with the headline chain's options
+# (fasta_nucleotide_changer on fastq_to_fasta's output), each with the
+# transform its classic path calls
+PER_READ = (
+    (fastx_trimmer, ["-Q", "33", "-l", "90", "-v"], "trimmer"),
+    (fastq_quality_filter, ["-Q", "33", "-q", "20", "-p", "50", "-v"],
+     "quality_filter_keep"),
+    (fastq_quality_trimmer, ["-Q", "33", "-t", "20", "-v"],
+     "quality_trimmer"),
+    (fastq_masker, ["-Q", "33", "-q", "20", "-v"], "masker"),
+    (fastq_to_fasta, ["-Q", "33", "-n", "-r", "-v"], "fastq_to_fasta_keep"),
+    (fastx_artifacts_filter, ["-Q", "33", "-v"], "artifacts_keep"),
+    (fastx_reverse_complement, ["-Q", "33", "-v"], "reverse_complement"),
+    (fasta_nucleotide_changer, ["-r", "-v"], "nucleotide_changer"),
+)
+# tools whose default engine runs no transform on a clean lane (the
+# raw-line fast path; fastq_to_fasta -r renumbers on the classic path)
+FAST_PATH_TOOLS = ("fastx_trimmer", "fastq_quality_filter",
+                   "fastq_quality_trimmer", "fastq_masker",
+                   "fastx_artifacts_filter")
 FIELDS = ("matches", "mismatches", "gaps", "neutral", "query_start",
           "query_end", "target_start", "target_end", "tie_fragile")
 KERNELS = ("align_packed12", "packed_counts", "align_packed", "align_unpacked",
@@ -373,6 +424,28 @@ def launch_inputs(module, keep=lambda *args: True):
         yield seen
     finally:
         module._launch = launch
+
+
+@contextlib.contextmanager
+def devices_of(module, names):
+    """Record ``(name, device type of the first argument)`` for every call
+    of ``module``'s functions ``names`` made inside the block."""
+    seen = []
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            seen.append((name, args[0].device.type))
+            return fn(*args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
 
 
 def k3_launch(_b2w, _nmw, _lengths, codes, L, _tie_flag):
@@ -681,6 +754,34 @@ def clipper_reference(data):
                  n_in - n_short - n_nonclip - n_n - n_zero, n_short, n_zero,
                  n_nonclip, n_n))
     return b"".join(out), report
+
+
+def collapse_reference(data):
+    """Path (e)'s output and ``-v`` report from a Python dict of sequence
+    -> [count, first index] over the FASTQ lane, ordered by
+    ``final_order`` and named by ``rank_count_column`` (neither engine
+    runs)."""
+    seqs = data.split(b"\n")[1::4]
+    table = {}
+    for i, seq in enumerate(seqs):
+        ent = table.get(seq)
+        if ent is None:
+            table[seq] = [1, i]
+        else:
+            ent[0] += 1
+    keys = list(table)
+    counts = np.array([table[k][0] for k in keys], np.int64)
+    first = np.array([table[k][1] for k in keys], np.int64)
+    order = collapse_ops.final_order(counts, first)
+    flat, offs = collapse_ops.rank_count_column(counts[order])
+    names = flat.tobytes()
+    out = b"".join(b">%s\n%s\n" % (names[offs[j]:offs[j + 1]], keys[o])
+                   for j, o in enumerate(order))
+    n = len(seqs)
+    report = ("Input: %d sequences (representing %d reads)\n"
+              "Output: %d sequences (representing %d reads)\n"
+              % (n, n, len(keys), n))
+    return out, report
 
 
 def pipeline_report(data, chain):
@@ -1234,20 +1335,20 @@ def main():
     del seen_c
 
     # (d) fastx_quality_stats, old and -N formats, on two lanes: the device
-    # engine (the default on a card, K5) against the host engine
-    os.environ.pop("FASTX_STATS_PATH", None)
+    # engine (K5) against the host engine (the default)
     stats_s = {}
     for lane, lane_data in (("headline", data), ("TruSeq", data_ts)):
         for argv in (["-Q", "33"], ["-Q", "33", "-N"]):
             label = "(d) fastx_quality_stats %s, %s lane" % (" ".join(argv),
                                                              lane)
-            with launch_inputs(stats_cuda) as seen_d:
-                status, got, _rep, dev_s, ln = run_cli(
-                    fastx_quality_stats, "fastx_quality_stats", argv,
-                    lane_data)
-            launches["d %s %s" % (lane, " ".join(argv))] = ln
-            os.environ["FASTX_STATS_PATH"] = "host"
+            os.environ["FASTX_STATS_PATH"] = "device"
             try:
+                with launch_inputs(stats_cuda) as seen_d:
+                    status, got, _rep, dev_s, ln = run_cli(
+                        fastx_quality_stats, "fastx_quality_stats", argv,
+                        lane_data)
+                launches["d %s %s" % (lane, " ".join(argv))] = ln
+                os.environ["FASTX_STATS_PATH"] = "host"
                 h_status, want_d, _rep, host_s, h_ln = run_cli(
                     fastx_quality_stats, "fastx_quality_stats", argv,
                     lane_data)
@@ -1274,6 +1375,135 @@ def main():
             del seen_d
     print("  (d) outputs equal the host engine's on both lanes and formats",
           flush=True)
+
+    # (e) fastx_collapser -Q 33 -v on a 1M-read small-RNA lane with
+    # miRNA-like duplication, on the device engine and the host engine
+    # (FASTX_COLLAPSE_PATH), each against a dict reference; the collapsed
+    # FASTA collapsed again (counts from the names) must come back
+    # unchanged, and uncollapsing it gives the input's multiset back
+    t_e = time.perf_counter()
+    data_col = synth.synth_collapse_lane_bytes(N_READS, seed=COLLAPSE_SEED)
+    t0 = time.perf_counter()
+    want_e, want_rep_e = collapse_reference(data_col)
+    print("  (e) lane: %d reads, %d distinct (%.1f s to generate, %.1f s "
+          "for the dict reference)" % (N_READS, want_e.count(b"\n") // 2,
+                                       t0 - t_e, time.perf_counter() - t0),
+          flush=True)
+    collapse_s = {}
+    for engine in ("device", "host"):
+        os.environ["FASTX_COLLAPSE_PATH"] = engine
+        try:
+            if engine == "device":  # warm-up: the first sorts on the card
+                run_cli(fastx_collapser, "fastx_collapser", ["-Q", "33"],
+                        data_col[:record_cut(data_col,
+                                             min(N_READS, 20000))])
+            with devices_of(collapse_ops, ("collapse",
+                                           "collapse_hashed")) as seen_e:
+                status, got, rep, collapse_s[engine], ln = run_cli(
+                    fastx_collapser, "fastx_collapser", ["-Q", "33", "-v"],
+                    data_col)
+                r_status, again, r_rep, _s, r_ln = run_cli(
+                    fastx_collapser, "fastx_collapser", ["-v"], got)
+        finally:
+            os.environ.pop("FASTX_COLLAPSE_PATH", None)
+        launches["e " + engine] = ln
+        label = "(e) fastx_collapser, %s engine" % engine
+        print("  %s: status %d, %d sequences out (%.2f s), %d dedup calls "
+              "on %s; re-collapse of its FASTA: status %d" % (
+                  label, status, got.count(b"\n") // 2, collapse_s[engine],
+                  len(seen_e), sorted({d for _n, d in seen_e}), r_status),
+              flush=True)
+        if status != 0 or r_status != 0:
+            fail("%s exited with status %d / %d (re-collapse)"
+                 % (label, status, r_status))
+        check_bytes(label, got, want_e)
+        if rep != want_rep_e:
+            fail("%s: the -v report differs:\n%s---\n%s"
+                 % (label, rep, want_rep_e))
+        check_bytes(label + ", re-collapsed", again, want_e)
+        n_uniq = want_e.count(b"\n") // 2
+        want_r_rep = ("Input: %d sequences (representing %d reads)\n"
+                      "Output: %d sequences (representing %d reads)\n"
+                      % (n_uniq, N_READS, n_uniq, N_READS))
+        if r_rep != want_r_rep:
+            fail("%s, re-collapsed: the -v report differs:\n%s---\n%s"
+                 % (label, r_rep, want_r_rep))
+        dedup_devices = {d for _n, d in seen_e}
+        if engine == "device" and (not seen_e or dedup_devices != {"cuda"}):
+            fail("%s: the dedup ran on %s" % (label, seen_e[:4]))
+        if engine == "host" and seen_e:
+            fail("%s: the device dedup ran %d times" % (label, len(seen_e)))
+        if any(ln.values()) or any(r_ln.values()):
+            fail("%s: kernel launches %s / %s" % (label, ln, r_ln))
+    u_status, back, u_rep, _s, _ln = run_cli(
+        fastx_uncollapser, "fastx_uncollapser", ["-v"], want_e)
+    in_seqs = sorted(data_col.split(b"\n")[1::4])
+    if u_status != 0 or sorted(back.split(b"\n")[1::2]) != in_seqs:
+        fail("(e) fastx_uncollapser: status %d, the sequences differ from "
+             "the input's multiset" % u_status)
+    want_u_rep = ("Input: %d sequences (representing %d reads)\n"
+                  "Output: %d sequences (representing %d reads)\n"
+                  % (n_uniq, N_READS, N_READS, N_READS))
+    if u_rep != want_u_rep:
+        fail("(e) fastx_uncollapser: the -v report differs:\n%s---\n%s"
+             % (u_rep, want_u_rep))
+    del in_seqs, back
+    print("  (e) outputs, -v reports and re-collapses equal the dict "
+          "reference on both engines; uncollapsed: the input's %d "
+          "sequences (%.1f s for the path)\n    %s" % (
+              N_READS, time.perf_counter() - t_e,
+              want_rep_e.rstrip().replace("\n", "\n    ")), flush=True)
+
+    # (f) the eight per-read tools on the headline lane, each on the
+    # default engine (the raw-line fast path where the tool has one) and
+    # with FASTX_LINEPATH=off (parse, then the transform on the card):
+    # outputs and -v reports equal, the classic runs' tensors on cuda
+    t_f = time.perf_counter()
+    per_read_s = {}
+    fasta_in = None
+    for tool, argv, fn in PER_READ:
+        prog = tool.__name__.rsplit(".", 1)[1]
+        inp = fasta_in if tool is fasta_nucleotide_changer else data
+        runs = {}
+        for engine in ("default", "off"):
+            if engine == "off":
+                os.environ["FASTX_LINEPATH"] = "off"
+            try:
+                with devices_of(transforms, (fn,)) as seen_f:
+                    runs[engine] = run_cli(tool, prog, argv, inp) + (
+                        list(seen_f),)
+            finally:
+                os.environ.pop("FASTX_LINEPATH", None)
+        (st0, out0, rep0, s0, ln0, seen0), (st1, out1, rep1, s1, ln1,
+                                            seen1) = runs.values()
+        per_read_s[prog] = (s0, s1)
+        launches["f " + prog] = ln1
+        print("  (f) %s %s: status %d / %d, %d bytes out; default engine "
+              "%.2f s (%d transform calls), FASTX_LINEPATH=off %.2f s (%d "
+              "calls on %s)" % (prog, " ".join(argv), st0, st1, len(out0),
+                                s0, len(seen0), s1, len(seen1),
+                                sorted({d for _n, d in seen1})), flush=True)
+        if st0 != 0 or st1 != 0:
+            fail("(f) %s exited with status %d / %d (off)" % (prog, st0, st1))
+        check_bytes("(f) %s, FASTX_LINEPATH=off against the default" % prog,
+                    out1, out0)
+        if rep1 != rep0 or not rep0:
+            fail("(f) %s: the -v reports differ:\n%s---\n%s"
+                 % (prog, rep0, rep1))
+        if not seen1 or {d for _n, d in seen1} != {"cuda"}:
+            fail("(f) %s: the classic run's transforms ran on %s"
+                 % (prog, seen1[:4]))
+        if prog in FAST_PATH_TOOLS and seen0:
+            fail("(f) %s: the default engine ran %d transforms on a clean "
+                 "lane" % (prog, len(seen0)))
+        if any(ln0.values()) or any(ln1.values()):
+            fail("(f) %s: kernel launches %s / %s" % (prog, ln0, ln1))
+        if tool is fastq_to_fasta:
+            fasta_in = out0
+    del fasta_in
+    print("  (f) each tool's outputs and -v reports equal on both engines "
+          "(%d reads, %.1f s for the path)" % (
+              N_READS, time.perf_counter() - t_f), flush=True)
 
     # (p) the probe's entry point (python -m fastx_toolkit_tpu_torch.probe)
     # with a budget of 15 s; its int32 and shared-memory rates give the
@@ -1342,6 +1572,15 @@ def main():
                     ("c", "fastx_pipeline -v (classic loop) 1M x 100")):
         print("  path (%s) %s: %.0f reads/s (one run, %.3f s) on %s"
               % (p, what, N_READS / path_s[p], path_s[p], card), flush=True)
+    for engine, secs in collapse_s.items():
+        print("  path (e) fastx_collapser -Q 33 -v, %s engine: %.0f reads/s "
+              "(one run, %.3f s) on %s" % (engine, N_READS / secs, secs,
+                                           card), flush=True)
+    for prog, (s0, s1) in per_read_s.items():
+        print("  path (f) %s: default engine %.0f reads/s (%.3f s), "
+              "FASTX_LINEPATH=off %.0f reads/s (%.3f s), one run each, %d "
+              "reads, on %s" % (prog, N_READS / s0, s0, N_READS / s1, s1,
+                                N_READS, card), flush=True)
     for (lane, new_fmt), (dev_s, host_s) in stats_s.items():
         print("  path (d) fastx_quality_stats%s %s lane: device engine %.0f "
               "reads/s (%.3f s), host engine %.0f reads/s (%.3f s), one run "

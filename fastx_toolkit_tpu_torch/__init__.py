@@ -21,10 +21,13 @@ counterpart is easy to find:
 * ``kernels/counts_cuda.py`` + ``csrc/packed_counts.cu`` — K2, the packed
   per-read base counts;
 * ``ops/transforms.py``, ``ops/clipper.py`` — the per-read tools;
-* ``cli/tools/fastx_pipeline.py``, ``cli/tools/fastx_clipper.py`` — the
-  CLIs (``python -m fastx_toolkit_tpu_torch.cli.tools.<tool>``);
+* ``ops/collapse.py`` — the collapser's sort and segment sums on the
+  device, and its host-side order and id columns;
+* ``cli/tools/*.py`` — the CLIs (``python -m
+  fastx_toolkit_tpu_torch.cli.tools.<tool>``), and ``cli/main.py`` the
+  ``fastx-torch`` dispatcher over them;
 * ``synth.py`` — seeded lanes; ``profile_paths.py`` — the card's busy
-  share per path.
+  share per path, and the engine policy's kinds timed.
 
 The package imports ``torch`` and never ``jax`` or anything of the JAX
 package.  Every library entry point takes an explicit ``device``; the

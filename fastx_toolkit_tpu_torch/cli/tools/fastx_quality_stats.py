@@ -30,11 +30,9 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from ...core import codec, native
 from ...device import resolve_device
-from ...engine.pipeline import to_device
 from ...ops import stats as stats_ops
 from .. import common
 from ..common import CliContext
@@ -102,7 +100,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     acc = stats_ops.StatsAccumulator.empty(0)
     path = stats_ops.stats_path()
     allowed = codec.allowed_table_u8() if path == "host" else None
-    device = resolve_device() if path == "device" else None
+    device = resolve_device()
     for chunk, line_base in reader.iter_chunks():
         parts = None
         if (path == "host" and reader.is_fastq
@@ -135,8 +133,8 @@ def tool_main(ctx: CliContext, argv) -> int:
                     is_fastq=batch.is_fastq,
                 )
             else:
-                bases, quals, lengths, counts = (
-                    torch.from_numpy(a).to(device) for a in to_device(batch))
+                bases, quals, lengths, counts = _shared.device_batch(
+                    batch, device)
                 parts = stats_ops.accumulate_dispatch(
                     bases, quals, lengths, counts, is_fastq=batch.is_fastq
                 )

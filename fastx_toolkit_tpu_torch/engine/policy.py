@@ -2,8 +2,8 @@
 
 Counterpart of ``fastx_toolkit_tpu/engine/policy.py``.  Several tools
 have two byte-identical engines — a fused host-native C++ pass and a
-device pass — and the default depends on where the device sits, not on
-the tool.  The kinds are the reference's:
+device pass — and one rule picks the default for all of them.  The kinds
+are the reference's:
 
 * ``stats``      — fastx_quality_stats histogram accumulation
                    (``ops/stats.py``: the native ``fx_stats_lines_q`` vs
@@ -12,34 +12,23 @@ the tool.  The kinds are the reference's:
 * ``per-read``   — the per-read CLI tools' raw-line fast path vs the
                    classic parse -> device path.
 
-Policy (the auto mode), the reference's rule for a chip on the host's
-own bus:
+Policy (the auto mode): ``host`` for every kind whenever the native
+codec is available, else ``device`` (its plain torch versions on the
+CPU).  The reference puts the reductions (stats, collapse) on the device
+when the chip sits on the host's own bus; on one H100 (700 W) the host
+engine won every one of ten alternating pairs for each kind on 1M-read
+lanes, by 1.76x (stats) and 3.27x (collapse) in the medians, and the
+raw-line path by 1.87-2.20x for each of the six per-read tools
+(``python -m fastx_toolkit_tpu_torch.profile_paths --policy``): parsing
+and uploading the blocks costs more than the card saves.
 
-* **a local CUDA card** (``FASTX_TORCH_DEVICE`` resolves to ``cuda``) ->
-  ``device`` for the reductions (stats, collapse);
-* **the CPU** -> ``host`` whenever the native codec is available;
-* **per-read tools** -> ``host`` everywhere;
-* without the native codec, ``device`` (its plain torch versions on the
-  CPU).
-
-A surface's env override (``FASTX_STATS_PATH`` for the stats CLI) goes
-through :func:`resolve` on top of this shared auto.  Whether the device
-rule still holds on the H100 is measured, not assumed: ``chip_smoke.py``
-times both engines of the stats CLI.
+A surface's env override (``FASTX_STATS_PATH``, ``FASTX_COLLAPSE_PATH``,
+``FASTX_LINEPATH``) goes through :func:`resolve` on top of this auto.
 """
 
 from __future__ import annotations
 
 _KINDS = ("stats", "collapse", "per-read")
-
-
-def backend_kind() -> str:
-    """``'gpu-local'`` when the resolved torch device is CUDA, else
-    ``'cpu'`` (``device.resolve_device``, which raises when CUDA is asked
-    for and absent)."""
-    from ..device import resolve_device
-
-    return "gpu-local" if resolve_device().type == "cuda" else "cpu"
 
 
 def engine_auto(kind: str) -> str:
@@ -49,11 +38,7 @@ def engine_auto(kind: str) -> str:
 
     if kind not in _KINDS:
         raise ValueError("unknown engine kind %r" % (kind,))
-    if native.LIB is None:
-        return "device"
-    if kind == "per-read":
-        return "host"
-    return "device" if backend_kind() == "gpu-local" else "host"
+    return "device" if native.LIB is None else "host"
 
 
 def resolve(kind: str, override: str | None) -> str:

@@ -374,8 +374,8 @@ def stats_path() -> str:
     """'host' or 'device' accumulation for the stats CLI.
 
     FASTX_STATS_PATH=host|device overrides the shared policy
-    (``engine.policy``: device on a local card, the host C++ histogram on
-    the CPU when the native codec is there).  Both paths produce
+    (``engine.policy``: the host C++ histogram when the native codec is
+    there, on a card too).  Both paths produce
     bit-identical accumulators.
     """
     from ..engine import policy

@@ -3,6 +3,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python -m fastx_toolkit_tpu_torch.profile_paths [--reads N]
+    python -m fastx_toolkit_tpu_torch.profile_paths --policy
 
 It generates the seeded lanes of ``chip_smoke.py`` (``synth``), warms
 each path up once on a small slice, then runs each path once over the
@@ -21,7 +22,27 @@ name.  The paths:
 * ``classic``   — ``fastx_pipeline -v`` on the headline chain: the classic
   per-batch loop (K4), 1M x 100 bp;
 * ``stats``     — ``fastx_quality_stats -Q 33`` on the headline lane with
-  the ``device`` engine (the default on a card: parse, upload, K5).
+  the ``device`` engine (``FASTX_STATS_PATH=device``: parse, upload,
+  K5);
+* ``collapse``  — ``fastx_collapser -Q 33`` with the ``device`` engine
+  (``FASTX_COLLAPSE_PATH=device``: parse, upload, sort and segment sums,
+  host merge) on the 1M-read collapse lane (``synth_collapse_lane_bytes``,
+  seed 11);
+* ``perread``   — ``fastq_quality_filter -Q 33 -q 20 -p 50`` with
+  ``FASTX_LINEPATH=off`` (the classic path: parse, upload, transform) on
+  the headline lane.
+
+``--policy`` times the two engines of each dual-engine kind of
+``engine/policy.py`` instead, in ten pairs (host then device in even
+pairs, device then host in odd ones), each run over the whole lane
+and its output held equal to its pair's: ``stats`` (``FASTX_STATS_PATH``)
+on the headline lane, ``collapse`` (``FASTX_COLLAPSE_PATH``) on the
+collapse lane, and ``per-read`` (``FASTX_LINEPATH=on``, the raw-line
+path, against ``off``, the classic path on the card) for each of the six
+per-read tools that have a raw-line path, with ``chip_smoke.py`` path
+(f)'s options (``fastq_to_fasta`` without ``-r``) on the headline lane.  Per kind it prints every time, the
+medians, the spreads and how many pairs each engine won, and one JSON
+line.
 
 Each line carries the card's name and power limit.
 """
@@ -30,6 +51,9 @@ from __future__ import annotations
 
 import argparse
 import io
+import json
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -41,7 +65,18 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import synth
 from .cli.common import CliContext
-from .cli.tools import fastx_clipper, fastx_pipeline, fastx_quality_stats
+from .cli.tools import (
+    fastq_masker,
+    fastq_quality_filter,
+    fastq_quality_trimmer,
+    fastq_to_fasta,
+    fastx_artifacts_filter,
+    fastx_clipper,
+    fastx_collapser,
+    fastx_pipeline,
+    fastx_quality_stats,
+    fastx_trimmer,
+)
 
 HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
             "fastq_quality_trimmer -t 20 | fastq_masker -q 20 | "
@@ -50,12 +85,96 @@ HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
 TRUSEQ = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 
 
-def _run(tool, argv, data):
-    ctx = CliContext(prog="profile", stdin=io.BytesIO(data),
-                     stdout=io.BytesIO(), stderr=io.StringIO(),
-                     stdout_text=io.StringIO())
-    if tool.tool_main(ctx, argv) != 0:
-        raise RuntimeError("%s failed: %s" % (argv, ctx.stderr.getvalue()))
+POLICY_PAIRS = 10
+# the six per-read tools with a raw-line path, with chip_smoke.py path
+# (f)'s options (fastq_to_fasta without -r, which turns the path off)
+PER_READ = (
+    (fastx_trimmer, ["-Q", "33", "-l", "90", "-v"]),
+    (fastq_quality_filter, ["-Q", "33", "-q", "20", "-p", "50", "-v"]),
+    (fastq_quality_trimmer, ["-Q", "33", "-t", "20", "-v"]),
+    (fastq_masker, ["-Q", "33", "-q", "20", "-v"]),
+    (fastq_to_fasta, ["-Q", "33", "-n", "-v"]),
+    (fastx_artifacts_filter, ["-Q", "33", "-v"]),
+)
+
+
+def _run(tool, argv, data, env=None):
+    """One in-process run of ``tool`` with ``env`` set for its duration:
+    its stdout bytes."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        ctx = CliContext(prog="profile", stdin=io.BytesIO(data),
+                         stdout=io.BytesIO(), stderr=io.StringIO(),
+                         stdout_text=io.StringIO())
+        if tool.tool_main(ctx, argv) != 0:
+            raise RuntimeError("%s failed: %s" % (argv,
+                                                  ctx.stderr.getvalue()))
+        return ctx.stdout.getvalue()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _timed(tool, argv, data, env):
+    t0 = time.perf_counter()
+    out = _run(tool, argv, data, env)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def policy_pairs(name, tool, argv, data, engines, pairs, smi):
+    """``pairs`` alternating timed runs of ``tool`` on its two engines
+    (``engines``: ``{"host": env, "device": env}``), outputs held equal
+    within each pair: the kind's line and its JSON record."""
+    warm = data[:data.find(b"\n@r20000\n") + 1] or data
+    for env in engines.values():
+        _run(tool, argv, warm, env)  # builds, first launches
+    secs = {"host": [], "device": []}
+    for i in range(pairs):
+        order = ("host", "device") if i % 2 == 0 else ("device", "host")
+        outs = {}
+        for eng in order:
+            t, outs[eng] = _timed(tool, argv, data, engines[eng])
+            secs[eng].append(t)
+        if outs["host"] != outs["device"]:
+            raise RuntimeError("%s: the engines' outputs differ" % name)
+    wins = sum(h < d for h, d in zip(secs["host"], secs["device"]))
+    rec = {"kind": name, "argv": argv, "pairs": pairs, "card": smi}
+    for eng, ts in secs.items():
+        rec[eng] = {"s": ts, "median_s": statistics.median(ts),
+                    "min_s": min(ts), "max_s": max(ts)}
+    rec["host_wins"] = wins
+    print("%-40s host median %.3f s (%.3f-%.3f), device median %.3f s "
+          "(%.3f-%.3f), host won %d of %d pairs, on %s" % (
+              name, rec["host"]["median_s"], rec["host"]["min_s"],
+              rec["host"]["max_s"], rec["device"]["median_s"],
+              rec["device"]["min_s"], rec["device"]["max_s"], wins, pairs,
+              smi), flush=True)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def policy(n, pairs, smi):
+    """The engine policy's kinds timed on the card (see the module
+    docstring)."""
+    lane = synth.synth_lane_bytes(n, 100, seed=42)
+    policy_pairs("stats fastx_quality_stats -Q 33", fastx_quality_stats,
+                 ["-Q", "33"], lane,
+                 {"host": {"FASTX_STATS_PATH": "host"},
+                  "device": {"FASTX_STATS_PATH": "device"}}, pairs, smi)
+    policy_pairs("collapse fastx_collapser -Q 33", fastx_collapser,
+                 ["-Q", "33"], synth.synth_collapse_lane_bytes(n, seed=11),
+                 {"host": {"FASTX_COLLAPSE_PATH": "host"},
+                  "device": {"FASTX_COLLAPSE_PATH": "device"}}, pairs, smi)
+    for tool, argv in PER_READ:
+        policy_pairs("per-read " + tool.__name__.rsplit(".", 1)[1], tool,
+                     argv, lane, {"host": {"FASTX_LINEPATH": "on"},
+                                  "device": {"FASTX_LINEPATH": "off"}},
+                     pairs, smi)
 
 
 def _busy_ms(events):
@@ -81,6 +200,8 @@ def _busy_ms(events):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=1_000_000)
+    ap.add_argument("--policy", action="store_true",
+                    help="time the engine policy's kinds instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
@@ -90,6 +211,9 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     n = args.reads
+    if args.policy:
+        policy(n, POLICY_PAIRS, smi)
+        return 0
     lane = synth.synth_lane_bytes(n, 100, seed=42)
     paths = {
         "headline": (fastx_pipeline, ["-Q", "33", HEADLINE], lane),
@@ -103,15 +227,23 @@ def main(argv=None):
                    synth.synth_lane_bytes(n, 150, seed=43, adapter=TRUSEQ)),
         "classic": (fastx_pipeline, ["-v", "-Q", "33", HEADLINE], lane),
         "stats": (fastx_quality_stats, ["-Q", "33"], lane),
+        "collapse": (fastx_collapser, ["-Q", "33"],
+                     synth.synth_collapse_lane_bytes(n, seed=11)),
+        "perread": (fastq_quality_filter,
+                    ["-Q", "33", "-q", "20", "-p", "50"], lane),
     }
+    envs = {"stats": {"FASTX_STATS_PATH": "device"},
+            "collapse": {"FASTX_COLLAPSE_PATH": "device"},
+            "perread": {"FASTX_LINEPATH": "off"}}
     for name, (tool, argv, data) in paths.items():
         cut = data.find(b"\n@r%d\n" % min(n - 1, 20000)) + 1
-        _run(tool, argv, data[:cut])  # warm-up: build, first launches
+        env = envs.get(name)
+        _run(tool, argv, data[:cut], env)  # warm-up: build, first launches
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _run(tool, argv, data)
+            _run(tool, argv, data, env)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy, by_name = _busy_ms(prof.events())

@@ -4,7 +4,9 @@
 lane (``bench.synth_lane_bytes``), rebuilt on the port's own ``records``
 and ``codec``: with the default adapter it gives the same bytes.
 :func:`synth_small_rna_lane_bytes` is a small-RNA lane for the standalone
-clipper (``fastx_clipper -a TGGAATTCTCGGGTGCCAAGG -l 15 -c``).
+clipper (``fastx_clipper -a TGGAATTCTCGGGTGCCAAGG -l 15 -c``);
+:func:`synth_collapse_lane_bytes` a clipped small-RNA lane with the
+duplication of miRNA-seq, for ``fastx_collapser``.
 """
 
 from __future__ import annotations
@@ -80,3 +82,26 @@ def synth_small_rna_lane_bytes(n, read_len=50, adapter=SMALL_RNA_ADAPTER,
     lengths[short] = rng.integers(10, read_len + 1, int(short.sum()))
     quals = np.clip(rng.normal(32, 6, (n, read_len)), 2, 40).astype(np.int16)
     return _render(bases, quals, lengths)
+
+
+def synth_collapse_lane_bytes(n, pool=50_000, seed=11) -> bytes:
+    """A clipped small-RNA lane with real duplication: ``n`` FASTQ reads,
+    each an insert of 18-30 random ACGT bases drawn from a pool of
+    ``pool`` distinct sequences with frequency proportional to 1/rank (a
+    few sequences take most reads, as in miRNA-seq); qualities Phred+33
+    around 32."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seqs = np.zeros((pool, 30), np.uint8)
+    plens = rng.integers(18, 31, pool).astype(np.int32)
+    redo = np.arange(pool)
+    while len(redo):  # redraw any sequence equal to an earlier one
+        seqs[redo] = rng.choice(acgt, size=(len(redo), 30))
+        cols = np.arange(30)[None, :]
+        seqs[cols >= plens[:, None]] = 0
+        _, first = np.unique(seqs, axis=0, return_index=True)
+        redo = np.setdiff1d(np.arange(pool), first)
+    p = 1.0 / np.arange(1, pool + 1)
+    pick = rng.choice(pool, size=n, p=p / p.sum())
+    quals = np.clip(rng.normal(32, 6, (n, 30)), 2, 40).astype(np.int16)
+    return _render(seqs[pick], quals, plens[pick])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain PyTorch versions
-on the same CUDA tensors, and the on-card engine against its CPU path.
+on the same CUDA tensors, and the on-card engine, the collapse functions
+and the CLIs against their CPU runs.
 
 Every test is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  On a machine with a card, which has no jax,
@@ -567,22 +568,23 @@ def test_k2_edges_on_card(dev, L, with_nm):
 @pytest.mark.parametrize("argv", [["-Q", "33"], ["-Q", "33", "-N"]])
 def test_stats_cli_on_card_matches_cpu(dev, argv, monkeypatch):
     """fastx_quality_stats on the device engine (K5) over several blocks,
-    equal to its CPU run and to the host engine."""
+    equal to its CPU run and to the host engine, the default."""
     from fastx_toolkit_tpu_torch.cli.tools import fastx_quality_stats
     from fastx_toolkit_tpu_torch.kernels import stats_cuda
 
     monkeypatch.setenv("FASTX_TPU_BLOCK_BYTES", "100000")
-    monkeypatch.delenv("FASTX_STATS_PATH", raising=False)
+    monkeypatch.setenv("FASTX_STATS_PATH", "device")
     data = _lane(4000, seed=16)
     before = stats_cuda.launches
     got = _cli_run(fastx_quality_stats, argv, data, "cuda", monkeypatch)
     launched = stats_cuda.launches - before
-    monkeypatch.setenv("FASTX_STATS_PATH", "device")
     want = _cli_run(fastx_quality_stats, argv, data, "cpu", monkeypatch)
-    monkeypatch.setenv("FASTX_STATS_PATH", "host")
-    host = _cli_run(fastx_quality_stats, argv, data, "cpu", monkeypatch)
+    monkeypatch.delenv("FASTX_STATS_PATH")
+    before = stats_cuda.launches
+    host = _cli_run(fastx_quality_stats, argv, data, "cuda", monkeypatch)
     assert got == want == host and want[0] == 0
-    assert launched >= 4  # the default engine on a card is the device
+    assert launched >= 4  # one per block
+    assert stats_cuda.launches == before  # the default engine is the host
 
 
 @pytest.mark.parametrize("residence", ["reg", "smem"])
@@ -628,3 +630,99 @@ def test_plane_probe_cuda_output_is_checked_not_routed_to_plain(dev):
             "dependent", torch.empty(128, dtype=torch.int32, device=dev)[::2],
             H=24, K=1, U=16)
     assert probe_cuda.launches == before
+
+
+def _collapse_operands(seed, B, W, pool=40):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (pool, W), dtype=np.uint64)
+    words = words[rng.integers(0, pool, B)].astype(np.uint32)
+    counts = rng.integers(1, 6, B).astype(np.int32)
+    first_idx = rng.permutation(B).astype(np.int32)
+    return (torch.from_numpy(words.view(np.int32)), torch.from_numpy(counts),
+            torch.from_numpy(first_idx))
+
+
+@pytest.mark.parametrize("B,W", [(1, 1), (5000, 1), (5000, 2), (20000, 8)])
+@pytest.mark.parametrize("form", ["exact", "hashed", "unit", "weak"])
+def test_collapse_on_card_matches_cpu(dev, B, W, form):
+    """ops/collapse on CUDA tensors equals its CPU run (every output; the
+    weak hash forces the collision)."""
+    from fastx_toolkit_tpu_torch.ops import collapse
+
+    ops = _collapse_operands(B + W, B, W)
+    if form == "exact":
+        fn = collapse.collapse
+    else:
+        def fn(*a):
+            return collapse.collapse_hashed(*a, weak_hash=form == "weak",
+                                            unit_counts=form == "unit")
+    want = fn(*ops)
+    got = fn(*(t.to(dev) for t in ops))
+    for g, w in zip(got, want):
+        if g is None:
+            assert w is None
+            continue
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    if form == "weak" and B > 1:
+        assert bool(got[5])
+
+
+@pytest.mark.parametrize("env", [{}, {"FASTX_COLLAPSE_EXACT": "1"},
+                                 {"FASTX_COLLAPSE_WEAK_HASH": "1"}])
+def test_collapse_batch_and_cli_on_card_match_cpu(dev, env, monkeypatch):
+    from fastx_toolkit_tpu_torch.cli.tools import fastx_collapser
+    from fastx_toolkit_tpu_torch.ops import collapse
+    from fastx_toolkit_tpu_torch.synth import synth_collapse_lane_bytes
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(3)
+    bases = rng.choice(ALPHA, (30, 64))[rng.integers(0, 30, 8000)]
+    counts = rng.integers(1, 4, 8000).astype(np.int32)
+    for g, w in zip(collapse.collapse_batch(bases, counts, dev),
+                    collapse.collapse_batch(bases, counts,
+                                            torch.device("cpu"))):
+        assert np.array_equal(g, w)
+    monkeypatch.setenv("FASTX_TPU_BLOCK_BYTES", "200000")
+    monkeypatch.setenv("FASTX_COLLAPSE_PATH", "device")
+    data = synth_collapse_lane_bytes(20000, pool=2000, seed=5)
+    got = _cli_run(fastx_collapser, ["-v"], data, "cuda", monkeypatch)
+    want = _cli_run(fastx_collapser, ["-v"], data, "cpu", monkeypatch)
+    monkeypatch.setenv("FASTX_COLLAPSE_PATH", "host")
+    host = _cli_run(fastx_collapser, ["-v"], data, "cpu", monkeypatch)
+    assert got == want == host and want[0] == 0
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("fastq_quality_trimmer", ["-Q", "33", "-t", "20", "-l", "10", "-v"]),
+    ("fastx_trimmer", ["-Q", "33", "-f", "3", "-l", "40", "-v"]),
+    ("fastx_reverse_complement", ["-Q", "33", "-v"]),
+])
+def test_per_read_classic_path_on_card_matches_cpu(dev, tool, argv,
+                                                   monkeypatch):
+    """A per-read tool with FASTX_LINEPATH=off keeps its tensors on the
+    card, and its output equals the CPU run and the default engine's."""
+    import importlib
+
+    from fastx_toolkit_tpu_torch.ops import transforms
+
+    mod = importlib.import_module(
+        "fastx_toolkit_tpu_torch.cli.tools." + tool)
+    fn = {"fastq_quality_trimmer": "quality_trimmer",
+          "fastx_trimmer": "trimmer",
+          "fastx_reverse_complement": "reverse_complement"}[tool]
+    seen = []
+    real = getattr(transforms, fn)
+    monkeypatch.setattr(transforms, fn,
+                        lambda *a, **k: seen.append(a[0].device.type)
+                        or real(*a, **k))
+    monkeypatch.setenv("FASTX_TPU_BLOCK_BYTES", "100000")
+    data = _lane(3000, seed=17)
+    monkeypatch.setenv("FASTX_LINEPATH", "off")
+    got = _cli_run(mod, argv, data, "cuda", monkeypatch)
+    assert len(seen) >= 3 and set(seen) == {"cuda"}
+    want = _cli_run(mod, argv, data, "cpu", monkeypatch)
+    monkeypatch.delenv("FASTX_LINEPATH")
+    default = _cli_run(mod, argv, data, "cuda", monkeypatch)
+    assert got == want == default and want[0] == 0

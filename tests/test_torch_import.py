@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastx_toolkit_tpu_torch import synth
 from fastx_toolkit_tpu_torch.device import resolve_device
 from fastx_toolkit_tpu_torch.kernels import (
     align_cuda,
@@ -22,11 +23,11 @@ from fastx_toolkit_tpu_torch.kernels import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_py(code, stdin=b"", env_extra=None, args=()):
+def _run_py(code, stdin=b"", env_extra=None, args=(), cwd=ROOT):
     env = dict(os.environ, PYTHONPATH=ROOT, FASTX_TORCH_DEVICE="cpu")
     env.update(env_extra or {})
     return subprocess.run([sys.executable, "-c", code, *args], input=stdin,
-                          capture_output=True, env=env, cwd=ROOT, timeout=300)
+                          capture_output=True, env=env, cwd=cwd, timeout=300)
 
 
 def test_port_imports_without_jax():
@@ -36,6 +37,11 @@ def test_port_imports_without_jax():
         "import fastx_toolkit_tpu_torch.cli.tools.fastx_pipeline\n"
         "import fastx_toolkit_tpu_torch.cli.tools.fastx_quality_stats\n"
         "import fastx_toolkit_tpu_torch.engine.lines\n"
+        "import fastx_toolkit_tpu_torch.cli.main as m\n"
+        "import importlib\n"
+        "for t in m.TOOLS.values():\n"
+        "    importlib.import_module(t)\n"
+        "import fastx_toolkit_tpu_torch.ops.collapse\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n")
     assert r.returncode == 0, r.stderr.decode()
@@ -105,6 +111,49 @@ def test_port_runs_with_the_jax_package_and_bench_blocked():
         "print('ok')\n")
     assert r.returncode == 0, r.stderr.decode()
     assert r.stdout.strip() == b"ok"
+
+
+def test_dispatcher_runs_with_the_jax_package_and_bench_blocked(tmp_path):
+    """With jax, the JAX package and bench unimportable, every tool
+    ``fastx-torch`` (``cli/main.py``) lists imports, the dispatcher runs
+    the collapser on its device engine and a per-read tool on its classic
+    path, and refuses a tool the port lacks with the reference's error and
+    exit 1."""
+    (tmp_path / "lane.fq").write_bytes(
+        synth.synth_collapse_lane_bytes(400, pool=30, seed=2))
+    r = _run_py(
+        "import os, sys\n"
+        "for m in ('jax', 'fastx_toolkit_tpu', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        "from fastx_toolkit_tpu_torch.cli import main\n"
+        "for t in main.TOOLS.values():\n"
+        "    importlib.import_module(t)\n"
+        "codes = []\n"
+        "for env, argv in (\n"
+        "        (('FASTX_COLLAPSE_PATH', 'device'),\n"
+        "         ['fastx_collapser', '-v', '-i', 'lane.fq', '-o', 'c.fa']),\n"
+        "        (('FASTX_LINEPATH', 'off'),\n"
+        "         ['fastq_quality_filter', '-Q', '33', '-q', '30', '-p', '50',\n"
+        "          '-v', '-i', 'lane.fq', '-o', 'f.fq']),\n"
+        "        (('X', ''), ['fasta_formatter'])):\n"
+        "    os.environ[env[0]] = env[1]\n"
+        "    sys.argv = ['fastx-torch'] + argv\n"
+        "    try:\n"
+        "        main.main()\n"
+        "    except SystemExit as e:\n"
+        "        codes.append(e.code)\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and (\n"
+        "    m in ('jax', 'bench') or m.split('.')[0] == 'fastx_toolkit_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('codes', codes)\n",
+        cwd=tmp_path)
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout.splitlines()[-1] == b"codes [0, 0, 1]"
+    assert b"fastx-torch: unknown tool 'fasta_formatter'" in r.stderr
+    assert (tmp_path / "c.fa").read_bytes().startswith(b">1-")
+    assert (tmp_path / "f.fq").read_bytes().startswith(b"@r")
+    assert b"Input: 400 sequences (representing 400 reads)" in r.stdout
 
 
 def _forbidden_imports(path):
