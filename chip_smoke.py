@@ -98,6 +98,20 @@ of the JAX package:
          runs) and with ``FASTX_LINEPATH=off`` (parse, then the
          transform on the card: every transform call's tensors on
          cuda), outputs and reports held equal; no kernel launches;
+   (g)   ``fastx_barcode_splitter --bol --mismatches 1`` on a seeded 1M x
+         100 bp lane with inline barcodes (``synth_barcode_lane_bytes``:
+         24 six-base barcodes, 5 % of the reads without one, one or two
+         substitutions in 12 %), then ``--eol --partial 1 --mismatches 1``
+         on a 262,144-read lane with them at the 3' end: every output file
+         and the summary held byte for byte against a numpy reference of
+         the Perl's rule (``barcode_reference``), the matcher's results
+         on the first 65,536 rows against ``barcode_match`` on CPU
+         tensors (the plain path), its one call a run on cuda tensors, no
+         kernel launches; then ``seqalign_test`` against its fixed text,
+         ``fasta_formatter -w 60`` and ``-t`` on (e)'s collapsed FASTA
+         against a plain formatter, and ``fastq_quality_converter -n``
+         then ``-a`` on the headline lane's first 65,536 reads, which must
+         give them back;
    (p)   the probe's entry point (``fastx_toolkit_tpu_torch.probe``'s
          ``measure``, budget 15 s): every variant timed at the DP shapes
          and the TPU's, its lines in ``probe.jsonl`` beside the build;
@@ -105,8 +119,9 @@ of the JAX package:
          0); a ``smem`` kernel whose SASS shows fewer than one shared load
          and store a plane op fails;
 5. times   — end-to-end reads/s of the headline (median of 3 runs after a
-   warm-up) and of paths (a)-(f) (one timed run each; (d) and (e) on
-   both engines, (f) on both per tool), and the device time of K1-K5b beside their plain versions
+   warm-up) and of paths (a)-(g) (one timed run each; (d) and (e) on
+   both engines, (f) on both per tool; (g) with the match's device time
+   from ``torch.profiler``), and the device time of K1-K5b beside their plain versions
    and, for K5/K5b, ``torch.bincount`` on precomputed flat ids (CUDA
    events); each kernel's bound is the larger of its device-memory bytes
    over 3.35 TB/s and its int32 operations at the card's int32 issue
@@ -137,6 +152,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -149,8 +165,10 @@ from torch.profiler import ProfilerActivity, profile
 from fastx_toolkit_tpu_torch import probe, synth
 from fastx_toolkit_tpu_torch.cli.common import CliContext
 from fastx_toolkit_tpu_torch.cli.tools import (
+    fasta_formatter,
     fasta_nucleotide_changer,
     fastq_masker,
+    fastq_quality_converter,
     fastq_quality_filter,
     fastq_quality_trimmer,
     fastq_to_fasta,
@@ -162,6 +180,7 @@ from fastx_toolkit_tpu_torch.cli.tools import (
     fastx_reverse_complement,
     fastx_trimmer,
     fastx_uncollapser,
+    seqalign_test,
 )
 from fastx_toolkit_tpu_torch.cli.tools._shared import (
     BatchReader,
@@ -202,6 +221,7 @@ from fastx_toolkit_tpu_torch.ops.clipper import (
     clip_cut_lengths,
     legacy_effective_query,
 )
+from fastx_toolkit_tpu_torch.scripts import barcode_splitter
 
 N_READS = 1_000_000
 READ_LEN = 100
@@ -230,6 +250,44 @@ PER_READ = (
     (fastx_reverse_complement, ["-Q", "33", "-v"], "reverse_complement"),
     (fasta_nucleotide_changer, ["-r", "-v"], "nucleotide_changer"),
 )
+# path (g): the splitter on a 1M-read lane with the barcodes at the 5'
+# end, then on a 262,144-read lane with them at the 3' end and partial
+# matches; the matcher's results held against the plain version on the
+# first BARCODE_CHECK rows
+BARCODE_RUNS = (
+    (N_READS, True, ["--bol", "--mismatches", "1"]),
+    (262_144, False, ["--eol", "--partial", "1", "--mismatches", "1"]),
+)
+BARCODE_CHECK = 65_536
+# seqalign_test's fixed output (the reference's typos kept)
+SEQALIGN_TEXT = (
+    "Score-Matrix:\n"
+    "- -      A        A        A        G        G        T        T"
+    "        T        C        C        C        \n"
+    "- -      0        0        0        0        0        0        0"
+    "        0        0        0        0        \n"
+    "A      0 M\\1.0    M\\1.0    M\\1.0    x\\-1.0   x\\-1.0   x\\-1.0"
+    "   x\\-1.0   x\\-1.0   x\\-1.0   x\\-1.0   x\\-1.0\n"
+    "G      0 x\\-1.0   x\\0.0    x\\0.0    M\\2.0    M\\0.0    x\\-2.0"
+    "   x\\-2.0   x\\-2.0   x\\-2.0   x\\-2.0   x\\-2.0\n"
+    "G      0 x\\-1.0   x\\-2.0   x\\-1.0   M\\1.0    M\\3.0    x\\-1.0"
+    "   x\\-3.0   x\\-3.0   x\\-3.0   x\\-3.0   x\\-3.0\n"
+    "C      0 x\\-1.0   x\\-2.0   x\\-3.0   x\\-2.0   x\\0.0    x\\2.0 "
+    "   x\\-2.0   x\\-4.0   M\\-2.0   M\\-2.0   M\\-2.0\n"
+    "T     -5 x\\-1.0   x\\-2.0   x\\-3.0   x\\-4.0   x\\-3.0   M\\1.0 "
+    "   M\\3.0    M\\-1.0   x\\-5.0   x\\-3.0   x\\-3.0\n"
+    "T    -10 x\\-6.0   x\\-2.0   x\\-3.0   x\\-4.0   x\\-5.0   M\\-2.0"
+    "   M\\2.0    M\\4.0    x--1.0   x\\-6.0   x\\-4.0\n"
+    "Query-Alingment = AGGTTT\n"
+    "target-Alingment= AGGCTT\n"
+    "Alignment NOT found\n"
+    "Score = 4 (5 matches, 0 neutral-matches, 1 mismatches, 0 gaps) \n"
+    "Query = AAAGGTTTCCC(qsize 11 qstart 2 qend 7\n"
+    "Target= AGGCTT(tsize 6 tstart 0 tend 5\n"
+    "\n"
+    "A(AGGTTT)CCC\n"
+    " (***|**)\n"
+    "  (AGGCTT)\n")
 # tools whose default engine runs no transform on a clean lane (the
 # raw-line fast path; fastq_to_fasta -r renumbers on the classic path)
 FAST_PATH_TOOLS = ("fastx_trimmer", "fastq_quality_filter",
@@ -553,6 +611,21 @@ def device_ms(fn, reps, kernel):
     return sum(spans) / len(spans) if spans else None
 
 
+def device_total_ms(fn, reps):
+    """Mean device milliseconds a call of ``fn`` keeps the card busy over
+    ``reps`` calls after one warm-up call: every kernel and copy it
+    launches, from ``torch.profiler`` (one stream, so the spans add)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps
+
+
 def k4_edge_adapter(H, table):
     """An adapter of ``H`` bytes for K4's edge checks: over ACGT with N
     bases (the table variant), or over 12 letters, 7 or more distinct
@@ -803,6 +876,120 @@ def pipeline_report(data, chain):
               for c, t in zip(cfgs, totals)]
     lines.append("Output: %d reads.\n" % int(totals[-1]))
     return "".join(lines)
+
+
+def barcode_reference(lane, bcfile, *, bol, partial, mismatches, prefix,
+                      suffix):
+    """Path (g)'s output files and summary from the Perl's rule, in numpy
+    (no matcher of the port runs): the barcodes in file order, each
+    followed by its partial variants (trimmed 5' for ``bol``, 3' else);
+    a read's fragment is its first or last barcode-length bases;
+    mismatches are the positions where the fragment and the barcode,
+    padded with zero bytes, differ (the Perl's string XOR), plus the
+    variant's trimmed length; the scan keeps each strict improvement
+    below the barcode length, and a read goes to its best barcode if that
+    has at most ``mismatches``, else to ``unmatched``.  The lane's reads
+    all have one length, longer than the barcodes."""
+    bcs = []
+    for line in bcfile.split(b"\n"):
+        if not line or line.startswith(b"#"):
+            continue
+        ident, code = line.split()
+        bcs.append((ident.decode(), code, 0))
+        for p in range(1, partial + 1):
+            bcs.append((ident.decode(), code[p:] if bol else code[:-p], p))
+    blen = len(bcs[0][1])
+    nl = np.flatnonzero(np.frombuffer(lane, np.uint8) == 0x0A)
+    n = len(nl) // 4
+    read_len = int(nl[1] - nl[0] - 1)
+    if not (nl[1::4] - nl[0::4] - 1 == read_len).all() or read_len < blen:
+        fail("(g) the reference takes reads of one length, at least %d"
+             % blen)
+    starts = np.concatenate([[0], nl[3::4][:-1] + 1])
+    seq0 = nl[0::4] + 1
+    cols = np.arange(blen) + (0 if bol else read_len - blen)
+    frag = np.frombuffer(lane, np.uint8)[seq0[:, None] + cols[None, :]]
+    best = np.full(n, blen)
+    pick = np.full(n, -1)
+    for k, (_ident, code, penalty) in enumerate(bcs):
+        padded = np.zeros(blen, np.uint8)
+        padded[:len(code)] = np.frombuffer(code, np.uint8)
+        mm = (frag != padded[None, :]).sum(axis=1) + penalty
+        better = mm < best
+        best[better] = mm[better]
+        pick[better] = k
+    pick[best > mismatches] = -1
+    idents = list(dict.fromkeys(b[0] for b in bcs)) + ["unmatched"]
+    dest = np.array([idents.index(b[0]) for b in bcs] + [len(idents) - 1])[pick]
+    ends = np.concatenate([starts[1:], [len(lane)]])
+    files, counts = {}, {}
+    for d, ident in enumerate(idents):
+        rows = np.flatnonzero(dest == d)
+        counts[ident] = len(rows)
+        files[prefix + ident + suffix] = b"".join(
+            lane[starts[i]:ends[i]] for i in rows.tolist())
+    summary = "Barcode\tCount\tLocation\n" + "".join(
+        "%s\t%d\t%s\n" % (i, counts[i], prefix + i + suffix)
+        for i in sorted(idents)) + "total\t%d\n" % n
+    return files, summary
+
+
+@contextlib.contextmanager
+def matcher_calls(rows):
+    """Record every ``transforms.barcode_match`` call made inside the
+    block: its bases' device type, its operands as passed, and CPU copies
+    of the operands' and results' first ``rows`` rows (the barcode
+    operands whole)."""
+    calls = []
+    match = transforms.barcode_match
+
+    def kept(bases, lengths, barcodes, barcode_lens, penalties, **kw):
+        out = match(bases, lengths, barcodes, barcode_lens, penalties, **kw)
+        calls.append({
+            "device": bases.device.type,
+            "operands": (bases, lengths, barcodes, barcode_lens, penalties),
+            "kw": kw,
+            "cpu": tuple(a.cpu() for a in (bases[:rows], lengths[:rows],
+                                            barcodes, barcode_lens,
+                                            penalties)),
+            "out": tuple(o[:rows].cpu() for o in out)})
+        return out
+
+    transforms.barcode_match = kept
+    try:
+        yield calls
+    finally:
+        transforms.barcode_match = match
+
+
+def run_splitter(argv, data):
+    """One in-process run of the port's ``fastx_barcode_splitter`` with
+    the launch counters set to 0 just before: ``(status, summary,
+    seconds, launches)``."""
+    out, err = io.StringIO(), io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    status = barcode_splitter.main_io(argv, io.BytesIO(data), out, err)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if status != 0 or err.getvalue():
+        fail("(g) fastx_barcode_splitter %s: status %d, stderr %r"
+             % (" ".join(argv), status, err.getvalue()))
+    return out.getvalue(), secs, counters()
+
+
+def formatter_reference(fasta, width, tabular):
+    """``fasta_formatter -w width`` or ``-t`` on a FASTA of one line a
+    sequence, none empty."""
+    lines = fasta.split(b"\n")
+    out = []
+    for name, seq in zip(lines[0::2], lines[1::2]):
+        if tabular:
+            out.append(name[1:] + b"\t" + seq + b"\n")
+        else:
+            out.append(name + b"\n" + b"".join(
+                seq[i:i + width] + b"\n" for i in range(0, len(seq), width)))
+    return b"".join(out)
 
 
 def main():
@@ -1505,6 +1692,107 @@ def main():
           "(%d reads, %.1f s for the path)" % (
               N_READS, time.perf_counter() - t_f), flush=True)
 
+    # (g) fastx_barcode_splitter on the card: each lane of BARCODE_RUNS,
+    # its files and summary against the numpy reference, the matcher's
+    # results on the first BARCODE_CHECK rows against the plain version
+    # (the same function on CPU tensors), every call on cuda, no kernel
+    t_g = time.perf_counter()
+    barcode_s = {}
+    for n_bc, bol, bc_argv in BARCODE_RUNS:
+        t0 = time.perf_counter()
+        lane, bcfile = synth.synth_barcode_lane_bytes(n_bc, READ_LEN, bol=bol)
+        gen_s = time.perf_counter() - t0
+        label = "(g) fastx_barcode_splitter %s" % " ".join(bc_argv)
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "bc.txt"), "wb") as fh:
+                fh.write(bcfile)
+            prefix = os.path.join(tmp, "out") + os.sep
+            os.mkdir(prefix)
+            argv = ["--bcfile", os.path.join(tmp, "bc.txt"), "--prefix",
+                    prefix, "--suffix", ".fq"] + bc_argv
+            with matcher_calls(BARCODE_CHECK) as calls:
+                summary, secs, ln = run_splitter(argv, lane)
+            t0 = time.perf_counter()
+            want_files, want_summary = barcode_reference(
+                lane, bcfile, bol=bol, partial=1 if "--partial" in bc_argv
+                else 0, mismatches=1, prefix=prefix, suffix=".fq")
+            ref_s = time.perf_counter() - t0
+            if summary != want_summary:
+                fail("%s: the summary differs from the reference:\n%s---\n%s"
+                     % (label, summary, want_summary))
+            got_names = sorted(os.path.join(prefix, f)
+                               for f in os.listdir(prefix))
+            if got_names != sorted(want_files):
+                fail("%s: files %s, the reference's %s"
+                     % (label, got_names, sorted(want_files)))
+            for fname, want_f in want_files.items():
+                with open(fname, "rb") as fh:
+                    check_bytes("%s, %s" % (label, os.path.basename(fname)),
+                                fh.read(), want_f)
+        launches["g " + ("bol" if bol else "eol")] = ln
+        if [c["device"] for c in calls] != ["cuda"]:
+            fail("%s: the matcher ran on %s" % (label,
+                                                [c["device"] for c in calls]))
+        if any(ln.values()):
+            fail("%s: kernel launches %s" % (label, ln))
+        call = calls[0]
+        plain = transforms.barcode_match(*call["cpu"], **call["kw"])
+        for g_, w_ in zip(call["out"], plain):
+            if not torch.equal(g_, w_):
+                fail("%s: the matcher's results on the card differ from the "
+                     "plain version on its first %d rows" % (label,
+                                                             BARCODE_CHECK))
+        ops = call["operands"]
+        match_ms = device_total_ms(lambda: transforms.barcode_match(
+            *ops, **call["kw"]), 5)
+        barcode_s[label] = (n_bc, secs, match_ms)
+        counts = summary.splitlines()[1:-1]
+        print("  %s: %d reads, %.3f s, %.0f reads/s; the match %.3f ms of "
+              "device time (torch.profiler, its kernels alone, [%d x %d] "
+              "against %d barcodes) on %s; files and summary equal the "
+              "numpy reference (%.1f s; %.1f s to generate the lane), the "
+              "results on the first %d rows the plain version's; %s ... %s"
+              % (label, n_bc, secs, n_bc / secs, match_ms, ops[0].shape[0],
+                 ops[0].shape[1], ops[2].shape[0], card, ref_s, gen_s,
+                 BARCODE_CHECK, counts[0], counts[-1]), flush=True)
+        del lane, calls, call, ops, want_files
+    # the host-only tools once each, on small inputs
+    text = io.StringIO()
+    reset_counters()
+    status = seqalign_test.tool_main(CliContext(
+        prog="seqalign_test", stdin=io.BytesIO(), stdout=io.BytesIO(),
+        stderr=io.StringIO(), stdout_text=text), [])
+    ln_t = counters()
+    if status != 0 or text.getvalue() != SEQALIGN_TEXT:
+        fail("(g) seqalign_test: status %d, output differs from the fixed "
+             "text" % status)
+    for argv, want_t in ((["-w", "60"],
+                          formatter_reference(want_e, 60, False)),
+                         (["-t"], formatter_reference(want_e, 0, True))):
+        status, got, _rep, _s, ln_f = run_cli(fasta_formatter,
+                                              "fasta_formatter", argv, want_e)
+        if status != 0 or any(ln_f.values()):
+            fail("(g) fasta_formatter %s: status %d, launches %s"
+                 % (" ".join(argv), status, ln_f))
+        check_bytes("(g) fasta_formatter %s" % " ".join(argv), got, want_t)
+    head = data[:record_cut(data, BARCODE_CHECK)]
+    status, num, _rep, _s, ln_n = run_cli(
+        fastq_quality_converter, "fastq_quality_converter",
+        ["-Q", "33", "-n"], head)
+    status2, back, _rep, _s, ln_a = run_cli(
+        fastq_quality_converter, "fastq_quality_converter",
+        ["-Q", "33", "-a"], num)
+    if (status, status2) != (0, 0) or num == head or any(
+            ln_n.values()) or any(ln_a.values()) or any(ln_t.values()):
+        fail("(g) fastq_quality_converter: status %d / %d" % (status, status2))
+    check_bytes("(g) fastq_quality_converter -n then -a", back, head)
+    print("  (g) seqalign_test equals its fixed text; fasta_formatter -w 60 "
+          "and -t on (e)'s %d sequences equal a plain formatter; "
+          "fastq_quality_converter -n then -a gives the headline lane's "
+          "first %d reads back (%.1f s for the path)" % (
+              want_e.count(b"\n") // 2, BARCODE_CHECK,
+              time.perf_counter() - t_g), flush=True)
+
     # (p) the probe's entry point (python -m fastx_toolkit_tpu_torch.probe)
     # with a budget of 15 s; its int32 and shared-memory rates give the
     # bounds of phase 5
@@ -1581,6 +1869,10 @@ def main():
               "FASTX_LINEPATH=off %.0f reads/s (%.3f s), one run each, %d "
               "reads, on %s" % (prog, N_READS / s0, s0, N_READS / s1, s1,
                                 N_READS, card), flush=True)
+    for label, (n_bc, secs, match_ms) in barcode_s.items():
+        print("  path %s: %.0f reads/s (one run, %.3f s, %d reads; the match "
+              "%.3f ms on the card) on %s" % (label, n_bc / secs, secs, n_bc,
+                                              match_ms, card), flush=True)
     for (lane, new_fmt), (dev_s, host_s) in stats_s.items():
         print("  path (d) fastx_quality_stats%s %s lane: device engine %.0f "
               "reads/s (%.3f s), host engine %.0f reads/s (%.3f s), one run "

@@ -30,7 +30,14 @@ name.  The paths:
   seed 11);
 * ``perread``   — ``fastq_quality_filter -Q 33 -q 20 -p 50`` with
   ``FASTX_LINEPATH=off`` (the classic path: parse, upload, transform) on
-  the headline lane.
+  the headline lane;
+* ``barcode``   — ``fastx_barcode_splitter --bol --mismatches 1`` on the
+  1M x 100 bp inline-barcode lane (``synth_barcode_lane_bytes``, 24
+  six-base barcodes), its files in a temporary directory; besides the
+  profile, the wall by the splitter's phases: framing
+  (``split_records``), the fragment matrix (the rest of ``main_io``), the
+  match (``_matcher``: upload, ``barcode_match``, copy back) and routing
+  with writing (``_route_and_report``).
 
 ``--policy`` times the two engines of each dual-engine kind of
 ``engine/policy.py`` instead, in ten pairs (host then device in even
@@ -56,6 +63,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -77,6 +85,7 @@ from .cli.tools import (
     fastx_quality_stats,
     fastx_trimmer,
 )
+from .scripts import barcode_splitter
 
 HEADLINE = ("fastx_trimmer | fastq_quality_filter -q 20 -p 50 | "
             "fastq_quality_trimmer -t 20 | fastq_masker -q 20 | "
@@ -117,6 +126,41 @@ def _run(tool, argv, data, env=None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+class _Splitter:
+    """``fastx_barcode_splitter`` behind the CLIs' ``tool_main``."""
+
+    @staticmethod
+    def tool_main(ctx, argv):
+        return barcode_splitter.main_io(argv, ctx.stdin, ctx.stdout_text,
+                                        ctx.stderr)
+
+
+class _PhaseClock:
+    """Wall seconds inside the splitter's phase functions while active."""
+    PHASES = ("split_records", "_matcher", "_route_and_report")
+
+    def __enter__(self):
+        self.secs = dict.fromkeys(self.PHASES, 0.0)
+        self.saved = {n: getattr(barcode_splitter, n) for n in self.PHASES}
+
+        def clocked(name, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.secs[name] += time.perf_counter() - t0
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(barcode_splitter, n, clocked(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(barcode_splitter, n, fn)
 
 
 def _timed(tool, argv, data, env):
@@ -215,6 +259,10 @@ def main(argv=None):
         policy(n, POLICY_PAIRS, smi)
         return 0
     lane = synth.synth_lane_bytes(n, 100, seed=42)
+    tmp = tempfile.TemporaryDirectory()
+    bc_lane, bcfile = synth.synth_barcode_lane_bytes(n, 100, bol=True)
+    with open(os.path.join(tmp.name, "bc.txt"), "wb") as fh:
+        fh.write(bcfile)
     paths = {
         "headline": (fastx_pipeline, ["-Q", "33", HEADLINE], lane),
         "clipper": (fastx_clipper,
@@ -231,6 +279,11 @@ def main(argv=None):
                      synth.synth_collapse_lane_bytes(n, seed=11)),
         "perread": (fastq_quality_filter,
                     ["-Q", "33", "-q", "20", "-p", "50"], lane),
+        "barcode": (_Splitter,
+                    ["--bcfile", os.path.join(tmp.name, "bc.txt"), "--bol",
+                     "--mismatches", "1", "--prefix",
+                     os.path.join(tmp.name, "bc_"), "--suffix", ".fq"],
+                    bc_lane),
     }
     envs = {"stats": {"FASTX_STATS_PATH": "device"},
             "collapse": {"FASTX_COLLAPSE_PATH": "device"},
@@ -241,7 +294,8 @@ def main(argv=None):
         _run(tool, argv, data[:cut], env)  # warm-up: build, first launches
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                _PhaseClock() as phases:
             t0 = time.perf_counter()
             _run(tool, argv, data, env)
             torch.cuda.synchronize()
@@ -254,6 +308,13 @@ def main(argv=None):
               flush=True)
         for k, ms in top:
             print("    %9.3f ms  %s" % (ms, k[:90]), flush=True)
+        if tool is _Splitter:
+            sec = phases.secs
+            print("    wall by phase (profiled): framing %.3f s, fragment "
+                  "matrix %.3f s, match %.3f s, routing and writing %.3f s"
+                  % (sec["split_records"], wall - sum(sec.values()),
+                     sec["_matcher"], sec["_route_and_report"]), flush=True)
+    tmp.cleanup()
     return 0
 
 

@@ -6,7 +6,9 @@ and ``codec``: with the default adapter it gives the same bytes.
 :func:`synth_small_rna_lane_bytes` is a small-RNA lane for the standalone
 clipper (``fastx_clipper -a TGGAATTCTCGGGTGCCAAGG -l 15 -c``);
 :func:`synth_collapse_lane_bytes` a clipped small-RNA lane with the
-duplication of miRNA-seq, for ``fastx_collapser``.
+duplication of miRNA-seq, for ``fastx_collapser``;
+:func:`synth_barcode_lane_bytes` a multiplexed lane with inline barcodes
+and its barcode file, for ``fastx_barcode_splitter``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,15 @@ def _render(bases, quals, lengths) -> bytes:
     return codec.render(batch, out_fastq=True, ascii_qual=True, q_offset=33)
 
 
+def _headline_quals(rng, n, read_len):
+    """The headline lane's quality model: Phred around 36, falling 12
+    along the read, clipped to [2, 40]."""
+    cols = np.arange(read_len)
+    quals = np.clip(rng.normal(36, 4, (n, read_len))
+                    - (cols[None, :] / read_len) * 12, 2, 40)
+    return (quals + 33).astype(np.uint8).astype(np.int16) - 33
+
+
 def synth_lane_bytes(n, read_len, seed=42, adapter=HEADLINE_ADAPTER) -> bytes:
     """``n`` FASTQ reads of ``read_len`` random ACGT bases, 30 % of them
     with ``adapter`` spiked in from a position in ``[30, read_len - 5)``,
@@ -46,11 +57,7 @@ def synth_lane_bytes(n, read_len, seed=42, adapter=HEADLINE_ADAPTER) -> bytes:
     for j, ch in enumerate(adapter):
         m = has_ad & (pos + j < read_len)
         bases[m, (pos + j)[m]] = ch
-    cols = np.arange(read_len)
-    quals = np.clip(rng.normal(36, 4, (n, read_len))
-                    - (cols[None, :] / read_len) * 12, 2, 40)
-    qual_ascii = (quals + 33).astype(np.uint8)
-    return _render(bases, qual_ascii.astype(np.int16) - 33,
+    return _render(bases, _headline_quals(rng, n, read_len),
                    np.full(n, read_len, np.int32))
 
 
@@ -105,3 +112,53 @@ def synth_collapse_lane_bytes(n, pool=50_000, seed=11) -> bytes:
     pick = rng.choice(pool, size=n, p=p / p.sum())
     quals = np.clip(rng.normal(32, 6, (n, 30)), 2, 40).astype(np.int16)
     return _render(seqs[pick], quals, plens[pick])
+
+
+def _barcode_set():
+    """24 distinct barcodes of 6 ACGT bases at pairwise Hamming distance
+    >= 3, drawn in a seeded order (uint8 ``[24, 6]``)."""
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    picked = rng.choice(acgt, (1, 6))
+    while len(picked) < 24:
+        cand = rng.choice(acgt, 6)
+        if int((picked != cand[None, :]).sum(axis=1).min()) >= 3:
+            picked = np.vstack([picked, cand[None, :]])
+    return picked
+
+
+def synth_barcode_lane_bytes(n, read_len, *, bol=True, seed=13):
+    """A multiplexed lane with inline barcodes, and its barcode file:
+    ``(lane_bytes, barcode_file_bytes)``.
+
+    ``n`` FASTQ reads of ``read_len`` random ACGT bases with the headline
+    lane's qualities; 95 % of them carry one of 24 six-base barcodes
+    (:func:`_barcode_set`, pairwise Hamming distance >= 3), drawn
+    uniformly, on the 5' end (``bol``) or the 3' end, with one base
+    substituted in about 10 % of the barcoded reads and two in about 2 %;
+    the other 5 % carry none.  The file names them ``BC01``..``BC24``, one
+    ``ident<TAB>barcode`` line each after a comment line."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    bcs = _barcode_set()
+    k, blen = bcs.shape
+    bases = rng.choice(acgt, size=(n, read_len))
+    pick = rng.integers(0, k, n)
+    tags = bcs[pick]
+    u = rng.random(n)
+    n_sub = np.where(u < 0.02, 2, np.where(u < 0.12, 1, 0))
+    pos = rng.integers(0, blen, n)
+    pos2 = (pos + rng.integers(1, blen, n)) % blen  # a second position
+    for p, rows in ((pos, n_sub >= 1), (pos2, n_sub == 2)):
+        r = np.flatnonzero(rows)
+        # a different base: the code plus 1-3, mod 4
+        code = np.searchsorted(acgt, tags[r, p[r]])
+        tags[r, p[r]] = acgt[(code + rng.integers(1, 4, len(r))) % 4]
+    barcoded = rng.random(n) >= 0.05
+    cols = slice(0, blen) if bol else slice(read_len - blen, read_len)
+    bases[barcoded, cols] = tags[barcoded]
+    lane = _render(bases, _headline_quals(rng, n, read_len),
+                   np.full(n, read_len, np.int32))
+    bcfile = b"#ident\tbarcode\n" + b"".join(
+        b"BC%02d\t%s\n" % (i + 1, bcs[i].tobytes()) for i in range(k))
+    return lane, bcfile

@@ -726,3 +726,85 @@ def test_per_read_classic_path_on_card_matches_cpu(dev, tool, argv,
     monkeypatch.delenv("FASTX_LINEPATH")
     default = _cli_run(mod, argv, data, "cuda", monkeypatch)
     assert got == want == default and want[0] == 0
+
+
+def _barcode_operands(seed, B, L, K, blen, partial):
+    """Reads over ACGTN, every third with a barcode at either end, lengths
+    0..L (a tenth below ``blen``); ``K`` barcodes, the last a repeat of the
+    first (a tie on every read), each followed by its ``partial`` trimmed
+    variants."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ALPHA[:4], (K, blen))
+    base[-1] = base[0]
+    rows, lens, pens = [], [], []
+    for k in range(K):
+        for p in range(partial + 1):
+            rows.append(np.concatenate([base[k][p:], np.zeros(p, np.uint8)]))
+            lens.append(blen - p)
+            pens.append(p)
+    bases = rng.choice(ALPHA, (B, L), p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    lengths = rng.integers(blen, L + 1, B)
+    short = rng.random(B) < 0.1
+    lengths[short] = rng.integers(0, blen, int(short.sum()))
+    tagged = np.arange(0, B, 3)
+    bases[tagged, :blen] = base[rng.integers(0, K, len(tagged))]
+    bases[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return [torch.from_numpy(a) for a in (
+        bases.astype(np.uint8), lengths.astype(np.int32),
+        np.stack(rows).astype(np.uint8), np.array(lens, np.int32),
+        np.array(pens, np.int32))]
+
+
+@pytest.mark.parametrize("bol", [True, False])
+@pytest.mark.parametrize("B,L,K,blen,partial", [
+    (300_000, 128, 24, 6, 0), (5000, 64, 12, 8, 2), (1, 32, 2, 5, 1),
+])
+def test_barcode_match_on_card_matches_cpu(dev, bol, B, L, K, blen, partial):
+    """The matcher on cuda tensors against the same function on CPU
+    tensors, across its row chunks, with ties and short reads."""
+    from fastx_toolkit_tpu_torch.ops import transforms
+
+    ops = _barcode_operands(B + L + K, B, L, K, blen, partial)
+    got = transforms.barcode_match(*(a.to(dev) for a in ops), bol=bol,
+                                   barcodes_length=blen)
+    want = transforms.barcode_match(*ops, bol=bol, barcodes_length=blen)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
+    assert not (want[0] >= (K - 1) * (partial + 1)).any()
+
+
+@pytest.mark.parametrize("bol,argv", [
+    (True, ["--bol", "--mismatches", "1"]),
+    (False, ["--eol", "--partial", "1", "--mismatches", "1"]),
+])
+def test_barcode_splitter_on_card_matches_cpu(dev, bol, argv, tmp_path,
+                                              monkeypatch):
+    """The splitter with FASTX_TORCH_DEVICE=cuda: its matcher called once,
+    on cuda tensors, and its files and summary equal the CPU run's."""
+    from fastx_toolkit_tpu_torch.ops import transforms
+    from fastx_toolkit_tpu_torch.scripts import barcode_splitter
+    from fastx_toolkit_tpu_torch.synth import synth_barcode_lane_bytes
+
+    lane, bcfile = synth_barcode_lane_bytes(20000, 100, bol=bol)
+    (tmp_path / "bc.txt").write_bytes(bcfile)
+    seen = []
+    real = transforms.barcode_match
+    monkeypatch.setattr(transforms, "barcode_match",
+                        lambda *a, **k: seen.append(a[0].device.type)
+                        or real(*a, **k))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        monkeypatch.setenv("FASTX_TORCH_DEVICE", device)
+        out_dir = tmp_path / device
+        out_dir.mkdir()
+        out, err = io.StringIO(), io.StringIO()
+        rc = barcode_splitter.main_io(
+            ["--bcfile", str(tmp_path / "bc.txt"), "--prefix",
+             str(out_dir) + "/", *argv], io.BytesIO(lane), out, err)
+        runs[device] = (rc, out.getvalue().replace(str(out_dir), "D"),
+                        err.getvalue(),
+                        {f.name: f.read_bytes() for f in out_dir.iterdir()})
+    assert seen == ["cuda", "cpu"]
+    assert runs["cuda"] == runs["cpu"] and runs["cpu"][0] == 0
+    assert len(runs["cpu"][3]) == 25

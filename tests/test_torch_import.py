@@ -116,11 +116,14 @@ def test_port_runs_with_the_jax_package_and_bench_blocked():
 def test_dispatcher_runs_with_the_jax_package_and_bench_blocked(tmp_path):
     """With jax, the JAX package and bench unimportable, every tool
     ``fastx-torch`` (``cli/main.py``) lists imports, the dispatcher runs
-    the collapser on its device engine and a per-read tool on its classic
-    path, and refuses a tool the port lacks with the reference's error and
-    exit 1."""
+    the collapser on its device engine, a per-read tool on its classic
+    path, the barcode splitter, the host-only tools, and refuses a tool
+    neither package has with the reference's error and exit 1."""
     (tmp_path / "lane.fq").write_bytes(
         synth.synth_collapse_lane_bytes(400, pool=30, seed=2))
+    lane, bcfile = synth.synth_barcode_lane_bytes(300, 40)
+    (tmp_path / "bc.fq").write_bytes(lane)
+    (tmp_path / "bc.txt").write_bytes(bcfile)
     r = _run_py(
         "import os, sys\n"
         "for m in ('jax', 'fastx_toolkit_tpu', 'bench'):\n"
@@ -136,9 +139,17 @@ def test_dispatcher_runs_with_the_jax_package_and_bench_blocked(tmp_path):
         "        (('FASTX_LINEPATH', 'off'),\n"
         "         ['fastq_quality_filter', '-Q', '33', '-q', '30', '-p', '50',\n"
         "          '-v', '-i', 'lane.fq', '-o', 'f.fq']),\n"
-        "        (('X', ''), ['fasta_formatter'])):\n"
+        "        (('X', ''), ['fastx_barcode_splitter.pl', '--bcfile',\n"
+        "                     'bc.txt', '--bol', '--prefix', 'bc_']),\n"
+        "        (('X', ''), ['seqalign_test']),\n"
+        "        (('X', ''), ['fasta_formatter', '-i', 'c.fa', '-t', '-o',\n"
+        "                     't.txt']),\n"
+        "        (('X', ''), ['fastq_quality_converter', '-n', '-i',\n"
+        "                     'lane.fq', '-o', 'n.fq']),\n"
+        "        (('X', ''), ['fastx_no_such_tool'])):\n"
         "    os.environ[env[0]] = env[1]\n"
         "    sys.argv = ['fastx-torch'] + argv\n"
+        "    sys.stdin = open('bc.fq')\n"
         "    try:\n"
         "        main.main()\n"
         "    except SystemExit as e:\n"
@@ -149,8 +160,13 @@ def test_dispatcher_runs_with_the_jax_package_and_bench_blocked(tmp_path):
         "print('codes', codes)\n",
         cwd=tmp_path)
     assert r.returncode == 0, r.stderr.decode()
-    assert r.stdout.splitlines()[-1] == b"codes [0, 0, 1]"
-    assert b"fastx-torch: unknown tool 'fasta_formatter'" in r.stderr
+    assert r.stdout.splitlines()[-1] == b"codes [0, 0, 0, 0, 0, 0, 1]"
+    assert b"fastx-torch: unknown tool 'fastx_no_such_tool'" in r.stderr
+    assert b"total\t300\n" in r.stdout
+    assert (tmp_path / "bc_BC01").read_bytes().startswith(b"@r")
+    assert b"Score-Matrix" in r.stdout
+    assert (tmp_path / "t.txt").read_bytes().startswith(b"1-")
+    assert (tmp_path / "n.fq").read_bytes().count(b"\n") == 1600
     assert (tmp_path / "c.fa").read_bytes().startswith(b">1-")
     assert (tmp_path / "f.fq").read_bytes().startswith(b"@r")
     assert b"Input: 400 sequences (representing 400 reads)" in r.stdout
