@@ -112,6 +112,32 @@ of the JAX package:
          against a plain formatter, and ``fastq_quality_converter -n``
          then ``-a`` on the headline lane's first 65,536 reads, which must
          give them back;
+   (h)   the pod on the card: the headline and collapse lanes written to
+         files, and N worker processes (``python3 chip_smoke.py --worker
+         SPEC``, started with ``cli/pod.worker_env``'s environment, so
+         every worker shares the one card and merges over gloo) each on
+         its own byte range: at N = 2 the headline (K1, K2), ``-v``
+         (classic, K4), ``fastx_quality_stats`` on both engines (K5 on
+         ``device``), ``fastx_collapser -Q 33 -v`` on both engines,
+         ``fastx_uncollapser -v`` on its merged output and
+         ``fastq_quality_filter -q 20 -p 50 -v``: the per-read tools'
+         shards concatenated, and the merged outputs, byte for byte
+         against the outputs paths main, (c)-(f) held, the ``-v`` reports
+         printed once, by rank 0, equal to the single-process reports;
+         each worker's launch counters (K1, K2, K4, K5; no K3), and the
+         first launch of each kernel a worker made held against its
+         plain version; then readings of the headline at N = 1, 2 and 4
+         (the sharded run's wall between barriers, median of 3), the
+         card's busy share at N = 2 (``torch.profiler`` in each worker),
+         the collapser's merge seconds and ``os.cpu_count()``; then the
+         launcher, ``fastx_pod_torch -n 2 -- fastx_pipeline``, once,
+         its shards against the main path's output;
+   mesh  ``parallel/mesh.py`` at world size 1 on NCCL (NCCL cannot put
+         two ranks on one card): each ``sharded_*`` on 262,144 headline
+         reads (the collapse lane's for the collapse, the barcode lane's
+         for the tally) on the card against its single-device function on
+         the same tensors, tolerance 0; ``sharded_pipeline`` on K4's
+         counter, its launch against the plain version;
    (p)   the probe's entry point (``fastx_toolkit_tpu_torch.probe``'s
          ``measure``, budget 15 s): every variant timed at the DP shapes
          and the TPU's, its lines in ``probe.jsonl`` beside the build;
@@ -146,10 +172,13 @@ result.
 """
 
 import contextlib
+import importlib
 import io
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -163,7 +192,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fastx_toolkit_tpu_torch import probe, synth
-from fastx_toolkit_tpu_torch.cli.common import CliContext
+from fastx_toolkit_tpu_torch.cli import pod
+from fastx_toolkit_tpu_torch.cli.common import CliContext, run_tool_main
 from fastx_toolkit_tpu_torch.cli.tools import (
     fasta_formatter,
     fasta_nucleotide_changer,
@@ -188,12 +218,16 @@ from fastx_toolkit_tpu_torch.cli.tools._shared import (
 )
 from fastx_toolkit_tpu_torch.core import codec, native
 from fastx_toolkit_tpu_torch.engine import hostfix
+from fastx_toolkit_tpu_torch.engine import pipeline as pipeline_mod
 from fastx_toolkit_tpu_torch.engine.lines import LineEngines, stream_pipeline_lines
 from fastx_toolkit_tpu_torch.engine.pipeline import (
     PipelineConfig,
     _thresholds,
     _words_T,
+    pack_batch2,
+    packed_pipeline_body,
     packed_quality_stage,
+    pipeline_body,
     to_device,
 )
 from fastx_toolkit_tpu_torch.kernels import (
@@ -215,12 +249,15 @@ from fastx_toolkit_tpu_torch.kernels.probe import (
 )
 from fastx_toolkit_tpu_torch.probe import cuda_ms
 from fastx_toolkit_tpu_torch.ops import collapse as collapse_ops
+from fastx_toolkit_tpu_torch.ops import stats as stats_ops
 from fastx_toolkit_tpu_torch.ops import transforms
 from fastx_toolkit_tpu_torch.ops.clipper import (
     adapter_cutoff_index,
     clip_cut_lengths,
     legacy_effective_query,
 )
+from fastx_toolkit_tpu_torch.parallel import mesh, multihost
+from fastx_toolkit_tpu_torch.profile_paths import _busy_ms
 from fastx_toolkit_tpu_torch.scripts import barcode_splitter
 
 N_READS = 1_000_000
@@ -356,6 +393,12 @@ K5_EDGE_L = (1, 31, 32, 33, 64, 65, 128, 160, 301)
 # the probe's timed variant in the kernels line: the dependent int32 chain
 # in registers at K3's TruSeq shape
 PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
+# path (h): the worker counts of the headline's readings, the reads of the
+# warm-up slice, the seconds a spawn of workers may take
+POD_WORKERS = (2, 1, 4)
+POD_WARM = 20_000
+POD_TIMEOUT = 300
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg):
@@ -992,6 +1035,272 @@ def formatter_reference(fasta, width, tabular):
     return b"".join(out)
 
 
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+@contextlib.contextmanager
+def first_launches():
+    """Keep device copies of the inputs of the first launch of each kernel
+    made inside the block, by the counter the launch moves (K2 through the
+    name ``engine/pipeline.py`` calls it by), so that each can be held
+    against its plain version after the block."""
+    kept = {}
+    la, lu = align_cuda._launch, align_unpacked_cuda._launch
+    ls, lc = stats_cuda._launch, pipeline_mod.packed_counts
+
+    def keep(key, args):
+        if key not in kept:
+            kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args)
+
+    def packed(*args):
+        keep("align_packed12" if align_cuda.packed12_ok(args[4], len(args[3]))
+             else "align_packed", args)
+        return la(*args)
+
+    def unpacked(*args):
+        keep("align_unpacked" if align_unpacked_cuda.lanes_ok(
+            args[0].shape[1], len(args[2])) else "align_unpacked_serial", args)
+        return lu(*args)
+
+    def hist(*args):
+        b2, codes, quals = args[:3]
+        keep("stats_hist_tiled" if not stats_cuda.tile_ok(
+            quals.shape[1], codes.shape[1])
+             else "stats_hist_b2" if b2 else "stats_hist", args)
+        return ls(*args)
+
+    def counts(*args):
+        if args[0].is_cuda:
+            keep("packed_counts", args)
+        return lc(*args)
+
+    align_cuda._launch, align_unpacked_cuda._launch = packed, unpacked
+    stats_cuda._launch, pipeline_mod.packed_counts = hist, counts
+    try:
+        yield kept
+    finally:
+        align_cuda._launch, align_unpacked_cuda._launch = la, lu
+        stats_cuda._launch, pipeline_mod.packed_counts = ls, lc
+
+
+def check_kept(kept):
+    """Each kept launch (:func:`first_launches`) run again on the kernel
+    and on its plain version: ``{counter: (max_abs_err, shape)}``."""
+    out = {}
+    for key, args in kept.items():
+        if key in ("align_packed12", "align_packed"):
+            b2w, nmw, l_, codes, L_, tie = args
+            got = align_cuda._launch(*args)
+            want = align_cuda.align_batch_packed_plain(
+                b2w, nmw, l_, bytes(b"ACGTN"[c] for c in codes), L=L_,
+                tie_flag=tie)
+            fields, shape = FIELDS if tie else FIELDS[:8], [b2w.shape[1], L_]
+        elif key == "packed_counts":
+            got = dict(zip(("worst", "ncnt"),
+                           counts_cuda.packed_counts(*args)))
+            want = dict(zip(("worst", "ncnt"),
+                            counts_cuda.packed_counts_plain(*args)))
+            fields = ("worst", "ncnt")
+            shape = [args[0].shape[1], args[0].shape[0] * 16]
+        elif key in ("align_unpacked", "align_unpacked_serial"):
+            b_, l_, ad, tie = args
+            got = align_unpacked_cuda._launch(*args)
+            want = align_batch(b_, l_, ad, tie_flag=tie)
+            fields, shape = FIELDS if tie else FIELDS[:8], list(b_.shape)
+        else:
+            b2, codes, q_, l_ = args
+            plain = (stats_cuda.stats_hist_b2_plain if b2
+                     else stats_cuda.stats_hist_plain)
+            got = {"hist": stats_cuda._launch(*args).flatten()}
+            want = {"hist": plain(codes, q_, l_).flatten()}
+            fields, shape = ("hist",), list(q_.shape)
+        torch.cuda.synchronize()
+        out[key] = (max(int((got[f].long() - want[f].long()).abs().max())
+                        if got[f].numel() else 0 for f in fields), shape)
+    return out
+
+
+def worker_run(tool, argv, env):
+    """One in-process run of the port's CLI ``tool`` as its process would
+    run it (``run_tool_main``), with ``env`` set for the run and the launch
+    counters set to 0 just before; fails on a status other than 0."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mod = importlib.import_module("fastx_toolkit_tpu_torch.cli.tools."
+                                      + tool)
+        sys.argv = [tool]
+        reset_counters()
+        t0 = time.perf_counter()
+        status = run_tool_main(mod.tool_main, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ln = counters()
+        sys.stdout.flush()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if status != 0:
+        raise RuntimeError("%s %s exited with status %d"
+                           % (tool, " ".join(argv), status))
+    return {"tool": tool, "s": secs, "launches": ln}
+
+
+def worker(spec_path):
+    """``python3 chip_smoke.py --worker SPEC``: one process of path (h),
+    started with ``cli/pod.worker_env``'s environment.  It runs SPEC's
+    commands in order through ``run_tool_main`` (a barrier of the process
+    group after each, so a command may read the merged output of the one
+    before), each with the launch counters set to 0 just before and read
+    just after, and times the collapser's table merge; then holds the
+    first launch of each kernel it made against the kernel's plain
+    version, and runs SPEC's timed headline (a warm-up on a slice, then
+    runs between barriers, and one under ``torch.profiler``).  Its -v
+    reports go to its stdout, and last a line ``WORKER {json}``."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    info = multihost.initialize()
+    barrier = (torch.distributed.barrier if info.collective
+               else (lambda: None))
+    _build.library()
+    merge_s = []
+    merge = fastx_collapser.merge_tables
+
+    def timed_merge(*args):
+        t0 = time.perf_counter()
+        out = merge(*args)
+        merge_s.append(time.perf_counter() - t0)
+        return out
+
+    fastx_collapser.merge_tables = timed_merge
+    runs = []
+    with first_launches() as kept:
+        for tool, argv, env in spec["cmds"]:
+            del merge_s[:]
+            runs.append(dict(worker_run(tool, argv, env),
+                             merge_s=sum(merge_s)))
+            barrier()
+    fastx_collapser.merge_tables = merge
+    checked = check_kept(kept)
+    timed = spec.get("timed")
+    res = {"rank": info.process_id, "runs": runs, "checked": checked}
+    if timed:
+        worker_run(timed["tool"], timed["warm"], {})
+        walls = []
+        for _ in range(timed["reps"]):
+            barrier()
+            t0 = time.perf_counter()
+            worker_run(timed["tool"], timed["argv"], {})
+            barrier()
+            walls.append(time.perf_counter() - t0)
+        res["walls"] = walls
+        if timed["profile"]:
+            barrier()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                worker_run(timed["tool"], timed["argv"], {})
+                wall = time.perf_counter() - t0
+            barrier()
+            busy, by_name = _busy_ms(prof.events())
+            res.update(profiled_wall=wall, busy_ms=busy, top=sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:5])
+    if info.collective:
+        torch.distributed.destroy_process_group()
+    print("WORKER " + json.dumps(res), flush=True)
+    return 0
+
+
+def spawn_workers(n, spec, tmp, tag):
+    """``n`` workers of path (h) on ``spec`` (:func:`worker`), each with
+    ``cli/pod.worker_env``'s environment for its rank; the first that
+    fails stops the others and fails the phase, as does a spawn past
+    ``POD_TIMEOUT``.  Returns each rank's ``(stdout before its WORKER
+    line, its JSON)``."""
+    spec_p = os.path.join(tmp, tag + ".json")
+    with open(spec_p, "w") as fh:
+        json.dump(spec, fh)
+    coord = "127.0.0.1:%d" % free_port()
+    n_cards = torch.cuda.device_count()
+    procs, files = [], []
+    for rank in range(n):
+        out_p, err_p = (os.path.join(tmp, "%s.%d.%s" % (tag, rank, x))
+                        for x in ("out", "err"))
+        files.append((out_p, err_p))
+        with open(out_p, "wb") as fo, open(err_p, "wb") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 spec_p], env=pod.worker_env(rank, n, coord, n_cards=n_cards),
+                stdout=fo, stderr=fe, cwd=ROOT))
+    deadline = time.monotonic() + POD_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for p, (out_p, err_p) in zip(procs, files):
+        with open(out_p) as fo, open(err_p) as fe:
+            outs.append((fo.read(), fe.read()))
+    if any(p.returncode != 0 for p in procs):
+        fail("(h) %s: worker exit codes %s (negative: stopped by the smoke "
+             "after another failed or the spawn passed %d s); stderr:\n%s"
+             % (tag, [p.returncode for p in procs], POD_TIMEOUT, "\n".join(
+                 "--- rank %d\n%s" % (r, e[-2000:])
+                 for r, (_o, e) in enumerate(outs))))
+    res = []
+    for out, _err in outs:
+        head, sep, line = out.rpartition("WORKER ")
+        if not sep:
+            fail("(h) %s: a worker printed no result" % tag)
+        res.append((head, json.loads(line)))
+    return res
+
+
+def run_pod(argv):
+    """The port's launcher (``python -m fastx_toolkit_tpu_torch.cli.pod
+    ARGV``) in a session of its own, so that past ``POD_TIMEOUT`` it is
+    stopped with every worker it started: ``(exit code, stdout,
+    stderr)``."""
+    p = subprocess.Popen([sys.executable, "-m",
+                          "fastx_toolkit_tpu_torch.cli.pod", *argv],
+                         cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=POD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        fail("(h) fastx_pod_torch %s passed %d s" % (" ".join(argv),
+                                                     POD_TIMEOUT))
+    return p.returncode, out, err
+
+
+def shard_bytes(path, n):
+    """The ``n`` shards of a per-read tool's output ``path``, concatenated
+    in order; fails if the unsharded name exists too."""
+    if os.path.exists(path):
+        fail("(h) %s exists beside its shards" % path)
+    parts = []
+    for k in range(n):
+        with open("%s.shard-%05d-of-%05d" % (path, k, n), "rb") as fh:
+            parts.append(fh.read())
+    return b"".join(parts)
+
+
 def main():
     t_main = time.perf_counter()
     # 1. device
@@ -1516,6 +1825,7 @@ def main():
         fail("path (c): the -v report differs:\n%s---\n%s" % (rep, want_rep))
     print("  (c) output bytes and -v report equal the host reference:\n    "
           + rep.rstrip().replace("\n", "\n    "), flush=True)
+    rep_c = rep
     if ln["align_unpacked"] <= 0:
         fail("path (c): K4 was not launched (%s)" % ln)
     k4_path_check("c", seen_c, ln["align_unpacked"])
@@ -1523,7 +1833,7 @@ def main():
 
     # (d) fastx_quality_stats, old and -N formats, on two lanes: the device
     # engine (K5) against the host engine (the default)
-    stats_s = {}
+    stats_s, stats_want = {}, {}
     for lane, lane_data in (("headline", data), ("TruSeq", data_ts)):
         for argv in (["-Q", "33"], ["-Q", "33", "-N"]):
             label = "(d) fastx_quality_stats %s, %s lane" % (" ".join(argv),
@@ -1550,6 +1860,7 @@ def main():
                 fail("%s exited with status %d / %d (host)"
                      % (label, status, h_status))
             check_bytes(label, got, want_d)
+            stats_want[(lane, tuple(argv))] = want_d
             if ln["stats_hist"] <= 0 or any(h_ln.values()):
                 fail("%s: K5 launches %s on the device engine, %s on the "
                      "host engine" % (label, ln, h_ln))
@@ -1634,6 +1945,7 @@ def main():
     if u_rep != want_u_rep:
         fail("(e) fastx_uncollapser: the -v report differs:\n%s---\n%s"
              % (u_rep, want_u_rep))
+    unc_want = back
     del in_seqs, back
     print("  (e) outputs, -v reports and re-collapses equal the dict "
           "reference on both engines; uncollapsed: the input's %d "
@@ -1687,6 +1999,8 @@ def main():
             fail("(f) %s: kernel launches %s / %s" % (prog, ln0, ln1))
         if tool is fastq_to_fasta:
             fasta_in = out0
+        if tool is fastq_quality_filter:
+            filt_want = (argv, out0, rep0)
     del fasta_in
     print("  (f) each tool's outputs and -v reports equal on both engines "
           "(%d reads, %.1f s for the path)" % (
@@ -1743,6 +2057,9 @@ def main():
                      "plain version on its first %d rows" % (label,
                                                              BARCODE_CHECK))
         ops = call["operands"]
+        if bol:
+            bc_mesh = (*(o[:CHUNK].clone() for o in ops[:2]),
+                       *ops[2:], call["kw"])
         match_ms = device_total_ms(lambda: transforms.barcode_match(
             *ops, **call["kw"]), 5)
         barcode_s[label] = (n_bc, secs, match_ms)
@@ -1792,6 +2109,237 @@ def main():
           "first %d reads back (%.1f s for the path)" % (
               want_e.count(b"\n") // 2, BARCODE_CHECK,
               time.perf_counter() - t_g), flush=True)
+
+    # (h) the pod on the card: the headline and collapse lanes as files,
+    # N worker processes sharing the card (cli/pod.worker_env), each on
+    # its own byte range, merging over gloo; shards and merged outputs
+    # against the single-process outputs the earlier paths held, the -v
+    # reports once from rank 0, each kernel the workers launched against
+    # its plain version; then the headline's readings at 1, 2 and 4
+    # workers and fastx_pod_torch -n 2 once
+    t_h = time.perf_counter()
+    h_readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def tmp_p(name):
+            return os.path.join(tmp, name)
+
+        for fname, blob in (("lane.fq", data), ("col.fq", data_col),
+                            ("head.fq", data[:record_cut(data, POD_WARM)])):
+            with open(tmp_p(fname), "wb") as fh:
+                fh.write(blob)
+        lane_p = tmp_p("lane.fq")
+        filt_argv, filt_out, filt_rep = filt_want
+        stats_h = stats_want[("headline", ("-Q", "33"))]
+        # (name, tool, argv, env, want, merged, -v report)
+        h_cmds = [
+            ("head", "fastx_pipeline", ["-Q", "33", "-i", lane_p], {}, want,
+             False, ""),
+            ("classic", "fastx_pipeline", ["-v", "-Q", "33", "-i", lane_p],
+             {}, want, False, rep_c),
+            ("stats_device", "fastx_quality_stats", ["-Q", "33", "-i",
+                                                     lane_p],
+             {"FASTX_STATS_PATH": "device"}, stats_h, True, ""),
+            ("stats_host", "fastx_quality_stats", ["-Q", "33", "-i", lane_p],
+             {"FASTX_STATS_PATH": "host"}, stats_h, True, ""),
+            ("col_device", "fastx_collapser", ["-Q", "33", "-v", "-i",
+                                               tmp_p("col.fq")],
+             {"FASTX_COLLAPSE_PATH": "device"}, want_e, True, want_rep_e),
+            ("col_host", "fastx_collapser", ["-Q", "33", "-v", "-i",
+                                             tmp_p("col.fq")],
+             {"FASTX_COLLAPSE_PATH": "host"}, want_e, True, want_rep_e),
+            ("unc", "fastx_uncollapser", ["-v", "-i", tmp_p("col_host")], {},
+             unc_want, False, want_u_rep),
+            ("filt", "fastq_quality_filter", filt_argv + ["-i", lane_p], {},
+             filt_out, False, filt_rep),
+        ]
+        spec = {"cmds": [[tool, ["-o", tmp_p(nm)] + argv + (
+            [HEADLINE] if tool == "fastx_pipeline" else []), env]
+            for nm, tool, argv, env, _w, _m, _r in h_cmds]}
+        for n_w in POD_WORKERS:
+            spec["timed"] = {
+                "tool": "fastx_pipeline", "reps": 3, "profile": n_w == 2,
+                "argv": ["-Q", "33", "-i", lane_p, "-o", tmp_p("timed"),
+                         HEADLINE],
+                "warm": ["-Q", "33", "-i", tmp_p("head.fq"), "-o",
+                         tmp_p("warm"), HEADLINE]}
+            t0 = time.perf_counter()
+            res = spawn_workers(n_w, spec, tmp, "pod%d" % n_w)
+            spawn_s = time.perf_counter() - t0
+            walls = res[0][1]["walls"]
+            h_readings[n_w] = (sorted(walls)[1], walls, spawn_s, res)
+            if n_w != 2:
+                continue
+            spec = {"cmds": []}  # the outputs are checked once, at 2
+            # outputs: shards of per-read tools, merged outputs once
+            for nm, tool, _a, env, want_h, merged, _r in h_cmds:
+                got = (open(tmp_p(nm), "rb").read() if merged
+                       else shard_bytes(tmp_p(nm), 2))
+                if merged and os.path.exists(tmp_p(nm) + ".shard-00000-of-"
+                                                         "00002"):
+                    fail("(h) %s: a merged output has shards" % nm)
+                check_bytes("(h) %s %s at 2 workers" % (tool, nm), got,
+                            want_h)
+            reports = [head for head, _j in res]
+            want_reports = "".join(r for *_x, r in h_cmds)
+            if reports != [want_reports, ""]:
+                fail("(h) the -v reports differ from the single-process "
+                     "ones (rank 0, then rank 1):\n%s---\n%s---\nwant:\n%s"
+                     % (reports[0], reports[1], want_reports))
+            merge_s = []
+            for _head, js in res:
+                rank = js["rank"]
+                for (nm, tool, *_x), run in zip(h_cmds, js["runs"]):
+                    ln = run["launches"]
+                    launches["h %s rank %d" % (nm, rank)] = ln
+                    need = {"head": ("align_packed12", "packed_counts"),
+                            "classic": ("align_unpacked",),
+                            "stats_device": ("stats_hist",)}.get(nm, ())
+                    if any(ln[k] <= 0 for k in need) or (
+                            not need and any(ln.values())) or (
+                            nm == "head" and ln["align_packed"]):
+                        fail("(h) rank %d %s: launches %s (expected %s)"
+                             % (rank, nm, ln, need or "none"))
+                    if tool == "fastx_collapser":
+                        merge_s.append((nm, rank, run["merge_s"]))
+                    print("  (h) rank %d %s %s: %.3f s, launches %s"
+                          % (rank, tool, nm, run["s"], ln), flush=True)
+                for k in ("align_packed12", "packed_counts",
+                          "align_unpacked", "stats_hist"):
+                    if k not in js["checked"]:
+                        fail("(h) rank %d kept no launch of %s" % (rank, k))
+                for k, (err, shape) in js["checked"].items():
+                    errs[k] = max(errs[k], err)
+                    print("  (h) rank %d: %s's first launch %s equals the "
+                          "plain version, max_abs_err=%d" % (rank, k, shape,
+                                                              err),
+                          flush=True)
+                    if err:
+                        fail("(h) rank %d: %s differs from its plain "
+                             "version" % (rank, k))
+            h_merge = merge_s
+            print("  (h) at 2 workers: outputs equal the single-process "
+                  "outputs byte for byte (shards concatenated, merged "
+                  "outputs once), the -v reports print once, from rank 0",
+                  flush=True)
+        # the port's launcher as a user runs it, once
+        t0 = time.perf_counter()
+        rc, _out, err = run_pod(
+            ["-n", "2", "--coordinator", "127.0.0.1:%d" % free_port(), "--",
+             "fastx_pipeline", "-Q", "33", "-i", lane_p, "-o", tmp_p("pod"),
+             HEADLINE])
+        pod_s = time.perf_counter() - t0
+        if rc != 0:
+            fail("(h) fastx_pod_torch -n 2: exit %d\n%s" % (rc, err[-3000:]))
+        check_bytes("(h) fastx_pod_torch -n 2 fastx_pipeline",
+                    shard_bytes(tmp_p("pod"), 2), want)
+    print("  (h) fastx_pod_torch -n 2 -- fastx_pipeline -Q 33 (headline): "
+          "shards equal the main path's output, %.2f s from launch to exit"
+          % pod_s, flush=True)
+    for n_w in sorted(h_readings):
+        med, walls, spawn_s, _res = h_readings[n_w]
+        print("  (h) reading: headline through %d worker%s: %.0f reads/s "
+              "(the sharded run's wall between barriers on rank 0, median "
+              "of 3: %s s; spawn %.1f s in all) on %s"
+              % (n_w, "s" if n_w > 1 else "", N_READS / med,
+                 ", ".join("%.3f" % w for w in walls), spawn_s, card),
+              flush=True)
+    res2 = h_readings[2][3]
+    busy2 = sum(js["busy_ms"] for _h, js in res2)
+    wall2 = max(js["profiled_wall"] for _h, js in res2)
+    print("  (h) reading: card busy at 2 workers: %.2f ms of a %.3f s "
+          "profiled run = %.2f %% (the sum of the workers' busy ms); "
+          "largest device items: %s; os.cpu_count() = %s on %s" % (
+              busy2, wall2, 100 * busy2 / 1e3 / wall2, "; ".join(
+                  "rank %d %s %.3f ms" % (js["rank"], k_[:60], v_)
+                  for _h, js in res2 for k_, v_ in js["top"][:3]),
+              os.cpu_count(), card), flush=True)
+    print("  (h) reading: the collapser's table allgather and merge at 2 "
+          "workers: %s on %s; path (h) %.1f s" % (", ".join(
+              "%s rank %d %.3f s" % m_ for m_ in h_merge), card,
+              time.perf_counter() - t_h), flush=True)
+
+    # mesh: parallel/mesh.py at world size 1 on NCCL (NCCL cannot put two
+    # ranks on one card), each sharded_* on the headline lane's first
+    # CHUNK reads on the card against its single-device function on the
+    # same tensors, tolerance 0
+    t_m = time.perf_counter()
+    mesh.distributed_init(backend="nccl",
+                          init_method="tcp://127.0.0.1:%d" % free_port(),
+                          world_size=1, rank=0)
+    if not torch.distributed.is_initialized() \
+            or "nccl" not in str(torch.distributed.get_backend()):
+        fail("mesh: the NCCL process group did not form")
+    m = mesh.data_mesh(1)
+    if m.device_type != "cuda":
+        fail("mesh: the mesh is on %s" % m.device_type)
+    hb = codec.parse(data[:record_cut(data, CHUNK)],
+                     filetype=codec.FASTQ_ONLY, q_offset=33)
+    mb, mq, ml, mc = mesh.shard_batch(m, *to_device(hb))
+    if not mb.is_cuda:
+        fail("mesh: shard_batch left the rows on %s" % mb.device)
+
+    def mesh_equal(what, got_, want_):
+        for i_, (g_, w_) in enumerate(zip(got_, want_)):
+            if not torch.equal(g_, w_):
+                fail("mesh: %s output %d differs from the single-device "
+                     "function's" % (what, i_))
+        print("  mesh %-24s equal to the single-device function on %d "
+              "outputs" % (what, len(want_)), flush=True)
+
+    mesh_equal("sharded_stats", mesh.sharded_stats(m, mb, mq, ml, mc,
+                                                   is_fastq=True),
+               stats_ops.accumulate(mb, mq, ml, mc, is_fastq=True))
+    reset_counters()
+    with first_launches() as kept_m:
+        got_m = mesh.sharded_pipeline(m)(mb, mq, ml, mc)
+    launches["mesh"] = counters()
+    if launches["mesh"]["align_unpacked"] <= 0:
+        fail("mesh: sharded_pipeline launched no K4 (%s)" % launches["mesh"])
+    cfg_s = PipelineConfig(with_stats=True)
+    want_m = pipeline_body(mb, mq, ml, cfg_s, counts=mc)
+    mesh_equal("sharded_pipeline", got_m, want_m[:4] + want_m[5:])
+    for k, (err, shape) in check_kept(kept_m).items():
+        errs[k] = max(errs[k], err)
+        if err:
+            fail("mesh: %s differs from its plain version" % k)
+        print("  mesh K4 (%s) launch %s equals the plain version" % (k, shape),
+              flush=True)
+    mb2, mpl = (torch.from_numpy(a).cuda() for a in pack_batch2(
+        hb.bases, hb.quals, cfg_s, n_plane=True))
+    L_h = int(hb.bases.shape[1])
+    got_m = mesh.sharded_packed_pipeline(m, seq_len=L_h)(mb2, mpl, ml, mc)
+    want_m = packed_pipeline_body(mb2, mpl, ml, cfg_s, seq_len=L_h,
+                                  two_bit=True, counts=mc)
+    mesh_equal("sharded_packed_pipeline", got_m, want_m[:2] + want_m[3:])
+    hc = codec.parse(data_col[:record_cut(data_col, CHUNK)],
+                     filetype=codec.FASTQ_ONLY, q_offset=33)
+    w_ = torch.from_numpy(collapse_ops.pack_words(hc.bases).view(
+        np.int32)).cuda()
+    c_ = torch.ones(len(hc), dtype=torch.int32, device=dev)
+    f_ = torch.arange(len(hc), dtype=torch.int32, device=dev)
+    perm, head, seg_id, seg_counts, seg_first = collapse_ops.collapse(w_, c_,
+                                                                      f_)
+    sid = seg_id.long()
+    mesh_equal("sharded_collapse", mesh.sharded_collapse(m, w_, c_, f_), (
+        w_[perm], torch.where(head, seg_counts[sid], 0).to(torch.int32),
+        torch.where(head, seg_first[sid], 2 ** 31 - 1).to(torch.int32)))
+    bb_, bl_, bcs_, bcl_, pen_, kw_ = bc_mesh
+    ident_of = torch.arange(bcs_.shape[0], dtype=torch.int32, device=dev)
+    idx_, mm_ = transforms.barcode_match(bb_, bl_, bcs_, bcl_, pen_, **kw_)
+    hit = (idx_ >= 0) & (mm_ <= 1)
+    ident_ = torch.where(hit, ident_of[idx_.clamp(min=0).long()],
+                         bcs_.shape[0]).long()
+    mesh_equal("sharded_barcode_counts", mesh.sharded_barcode_counts(
+        m, bb_, bl_, bcs_, bcl_, pen_, mismatches=1,
+        n_idents=bcs_.shape[0], ident_of_barcode=ident_of.cpu().numpy(),
+        **kw_), (torch.where(hit, ident_, -1).to(torch.int32),
+                 torch.bincount(ident_, minlength=bcs_.shape[0] + 1).to(
+                     torch.int32)))
+    torch.distributed.destroy_process_group()
+    del mb, mq, ml, mc, mb2, mpl, w_, c_, f_, bc_mesh, kept_m, got_m, want_m
+    print("  mesh: the five sharded_* equal their single-device functions "
+          "on %d reads on the card at world size 1 (NCCL) (%.1f s)"
+          % (CHUNK, time.perf_counter() - t_m), flush=True)
 
     # (p) the probe's entry point (python -m fastx_toolkit_tpu_torch.probe)
     # with a budget of 15 s; its int32 and shared-memory rates give the
@@ -2039,4 +2587,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2]))
     sys.exit(main())

@@ -26,6 +26,10 @@ counterpart is easy to find:
 * ``cli/tools/*.py`` — the CLIs (``python -m
   fastx_toolkit_tpu_torch.cli.tools.<tool>``), and ``cli/main.py`` the
   ``fastx-torch`` dispatcher over them;
+* ``parallel/multihost.py`` — byte-range sharding of every CLI's input
+  and the host merges over a gloo process group; ``cli/pod.py`` the
+  ``fastx_pod_torch`` launcher; ``parallel/mesh.py`` — the sharded
+  stats, pipeline, collapse and barcode tallies over a ``DeviceMesh``;
 * ``synth.py`` — seeded lanes; ``profile_paths.py`` — the card's busy
   share per path, and the engine policy's kinds timed.
 

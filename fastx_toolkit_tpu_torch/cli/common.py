@@ -13,9 +13,13 @@ verbatim so that usage and error texts are identical:
   stdout, exit 1;
 
 plus ``errx``, ``c_atoi``/``c_strtoul`` and ``report_stream``.
-``run_tool_main`` and ``OutputWriter`` are the single-process halves of
-the reference's (which set up jax's compile cache and multi-host shard
-roles): the port runs one process; multi-GPU sharding is a later slice.
+``run_tool_main`` brings the multi-process group up
+(``parallel/multihost.initialize``) before any tool code runs;
+``OutputWriter``'s roles and ``report_stream`` follow the reference's
+multi-process rules: per-read tools write one shard a process, global
+tools and ``-v`` reports write once, from process 0.  The reference's
+jax compile cache and its CPU fallback have no counterpart: the port
+never carries on on the CPU when the card is asked for.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..core.errors import FastxError
+from ..parallel import multihost
 
 PACKAGE_STRING = "FASTX Toolkit 0.0.14"
 
@@ -196,15 +201,44 @@ def errx(ctx: CliContext, message: str) -> "NoReturn":  # noqa: F821
     raise ExitWithStatus(1)
 
 
+class _NullBinaryStream:
+    """Swallows output on non-primary processes of a merged writer."""
+
+    def write(self, data) -> int:
+        return len(data)
+
+    def close(self) -> None:
+        pass
+
+
 class OutputWriter:
     """File/stdout writer with an optional gzip child, like the reference
-    tools' open_output_compressor (fastx.c:214-248)."""
+    tools' open_output_compressor (fastx.c:214-248).
 
-    def __init__(self, ctx: CliContext, common: CommonArgs):
+    Multi-process roles: ``role="shard"`` (per-read streaming tools) makes
+    each process write its own record-range shard — file outputs get a
+    ``.shard-<k>-of-<n>`` suffix whose in-order concatenation equals the
+    single-process output; stdout outputs go to each process's own
+    stdout.  ``role="merged"`` (global operators: stats, collapser) has
+    only process 0 write the collectively merged result to the plain
+    filename; in shard-only mode (no process group to merge over) the
+    partial result is written per shard like role="shard".
+    """
+
+    def __init__(self, ctx: CliContext, common: CommonArgs,
+                 role: str = "shard"):
         self.ctx = ctx
         self._gzip = None
         self._file = None
         filename = common.output_filename
+        info = multihost.shard_info()
+        if info.active:
+            if role == "merged" and info.collective:
+                if not info.is_primary:
+                    self.stream = _NullBinaryStream()
+                    return
+            elif filename != "-":
+                filename = multihost.shard_suffix(filename, info)
         if common.compress:
             if filename == "-":
                 self._gzip = subprocess.Popen(["gzip"], stdin=subprocess.PIPE,
@@ -244,7 +278,9 @@ class OutputWriter:
 def run_tool_main(tool_main: Callable[[CliContext, list], int],
                   argv=None) -> int:
     """Run ``tool_main`` as a process: FastxError and ExitWithStatus map
-    to exit codes as in the reference."""
+    to exit codes as in the reference.  The multi-process group
+    (FASTX_TPU_COORDINATOR, ...) comes up first."""
+    multihost.initialize()
     # "python -m ...fastx_pipeline" names the module file: drop its .py
     ctx = CliContext(prog=os.path.splitext(os.path.basename(sys.argv[0]))[0])
     args = list(sys.argv[1:] if argv is None else argv)
@@ -266,5 +302,10 @@ def run_tool_main(tool_main: Callable[[CliContext, list], int],
 
 def report_stream(ctx: CliContext, common: CommonArgs):
     """Where ``-v`` reports go: stdout when ``-o`` was given, else
-    stderr (one process, so always this process's own)."""
+    stderr.  In a process group the counters are allsum'd and only
+    process 0 prints the merged report; shard-only mode keeps each
+    shard's own report on its own stream."""
+    info = multihost.shard_info()
+    if info.active and info.collective and not info.is_primary:
+        return multihost.NullTextStream()
     return ctx.stdout_text if common.report_to_stdout else ctx.stderr

@@ -1,9 +1,9 @@
 """Shared glue for the port's tool front ends.
 
-Counterpart of ``fastx_toolkit_tpu/cli/tools/_shared.py`` for one
-process: ``BatchReader`` (chunked FASTA/FASTQ reading; the reference
-reader's constructor also sets up multi-host byte-range sharding, which
-the port does not have yet), the renderers (``render_same_as_input``,
+Counterpart of ``fastx_toolkit_tpu/cli/tools/_shared.py``:
+``BatchReader`` (chunked FASTA/FASTQ reading, over this process's
+record-aligned byte range of the input when ``parallel/multihost`` is
+active), the renderers (``render_same_as_input``,
 ``write_fasta``, ``write_fasta_frame``), ``in_out_report``, the per-read
 tools' raw-line gate ``line_fast_path`` and their upload
 ``device_batch``.  Chunking, format detection and parsing are the
@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 from ...core import codec, native
+from ...core.errors import FastxError
 from ...engine import policy
 from ...engine.pipeline import to_device
+from ...parallel import multihost
 from .. import common
 from ..common import ExitWithStatus
 
@@ -37,9 +39,10 @@ def render_same_as_input(args, batch) -> bytes:
     )
 
 
-def write_fasta(ctx, args, batch):
-    """FASTA rendering of ``batch`` through a fresh ``OutputWriter``."""
-    writer = common.OutputWriter(ctx, args)
+def write_fasta(ctx, args, batch, role="shard"):
+    """FASTA rendering of ``batch`` through a fresh ``OutputWriter`` of
+    ``role``."""
+    writer = common.OutputWriter(ctx, args, role=role)
     writer.write(codec.render(batch, out_fastq=False))
     writer.close()
 
@@ -129,7 +132,18 @@ class BatchReader:
     boundaries (:meth:`iter_chunks`), parses chunks on request
     (:meth:`parse_chunk`), and iterates parsed ReadBatch objects
     (``__iter__``).  The block size defaults to FASTX_TPU_BLOCK_BYTES
-    (64 MiB), as in the reference."""
+    (64 MiB), as in the reference.
+
+    Multi-process/sharded runs (parallel.multihost active): the input file
+    is split by byte ranges — this reader owns
+    ``[resync(k*size/N), resync((k+1)*size/N))``, resynced to record
+    boundaries, so every record belongs to exactly one process and the
+    shards concatenate in file order.  Requires a seekable input file;
+    format is detected once from the file head so all shards agree.
+    Validation-error line numbers are shard-local in this mode.  Every
+    reader-based path (the parsed batches, the raw-line host paths and
+    the line engine, which all consume :meth:`iter_chunks`) inherits the
+    range."""
 
     def __init__(self, ctx, args, *, filetype, allow_n=True, allow_u=False,
                  block_bytes=None, stream=None):
@@ -153,13 +167,49 @@ class BatchReader:
                       file=ctx.stderr)
                 raise ExitWithStatus(1)
         self.is_fastq = None
+        self._shard = multihost.shard_info()
+        self._shard_start = self._shard_end = None
+        if self._shard.active:
+            self._init_shard_range()
+
+    def _init_shard_range(self):
+        f = self._stream
+        if (
+            (self.ctx is not None and f is self.ctx.stdin)
+            or not (hasattr(f, "seekable") and f.seekable())
+            or not hasattr(f, "fileno")
+        ):
+            raise FastxError(
+                "sharded/multi-host input requires a seekable input file "
+                "(-i FILE), not STDIN or a pipe"
+            )
+        size = os.fstat(f.fileno()).st_size
+        f.seek(0)
+        head = f.read(min(size, 1 << 16))
+        # format decided from the file head so every shard agrees; an
+        # empty file raises the reference's premature-EOF error here
+        self.is_fastq = codec.detect_format(
+            head, self.args.input_filename, self.filetype)
+        self._shard_start, self._shard_end = multihost.shard_byte_range(
+            f, size, self.is_fastq, self._shard)
+        f.seek(self._shard_start)
 
     def iter_chunks(self):
         carry = b""
         line_base = 0
         first = True
+        remaining = None
+        if self._shard.active:
+            first = False  # format already detected from the file head
+            remaining = self._shard_end - self._shard_start
+            if remaining <= 0:
+                return
         while True:
-            block = self._stream.read(self.block_bytes)
+            want = (self.block_bytes if remaining is None
+                    else min(self.block_bytes, remaining))
+            block = self._stream.read(want) if want > 0 else b""
+            if remaining is not None:
+                remaining -= len(block)
             data = carry + block if carry else block
             if first:
                 # empty input raises the reference's premature-EOF error

@@ -22,6 +22,7 @@ import numpy as np
 from ...core import codec
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -100,6 +101,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n, total_changes = multihost.allsum(n, total_changes)
         rep = common.report_stream(ctx, args)
         rep.write("Mode: %s\n" % ("RNA-to-DNA" if st["dna"] else "DNA-to-RNA"))
         _shared.in_out_report(rep, n, n)

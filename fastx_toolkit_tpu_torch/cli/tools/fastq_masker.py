@@ -21,6 +21,7 @@ import numpy as np
 from ...core import codec, native
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -95,6 +96,8 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n_in, masked_reads, masked_nucs_total = multihost.allsum(
+            n_in, masked_reads, masked_nucs_total)
         rep = common.report_stream(ctx, args)
         rep.write("Minimum Quality Threshold: %d\n" % st["q"])
         rep.write("Low-quality nucleotides replaced with '%s'\n" % st["r"])

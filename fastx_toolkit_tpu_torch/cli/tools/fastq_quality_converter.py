@@ -2,8 +2,8 @@
 
 Counterpart of ``fastx_toolkit_tpu/cli/tools/fastq_quality_converter.py``
 (FASTX-Toolkit's ``fastq_quality_converter.c``), byte for byte, on the
-host only (parse and render with the port's codec).  The ``-v`` counts
-are this process's own: the port runs one process.
+host only (parse and render with the port's codec).  In a process group
+the ``-v`` counts are allsum'd (``parallel/multihost``).
 
 Usage:
     python -m fastx_toolkit_tpu_torch.cli.tools.fastq_quality_converter \\
@@ -15,6 +15,7 @@ from __future__ import annotations
 import sys
 
 from ...core import codec
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -56,6 +57,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        (n,) = multihost.allsum(n)
         rep = common.report_stream(ctx, args)
         _shared.in_out_report(rep, n, n)
     return 0

@@ -19,6 +19,7 @@ import sys
 from ...core import codec, native
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -91,6 +92,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n_in, n_out = multihost.allsum(n_in, n_out)
         rep = common.report_stream(ctx, args)
         rep.write("Minimum Quality Threshold: %d\n" % st["t"])
         if st["l"] > 0:

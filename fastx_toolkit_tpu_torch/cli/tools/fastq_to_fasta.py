@@ -23,6 +23,7 @@ from ...core.records import StringColumn
 from ...device import resolve_device
 from ...ops import transforms
 from ...ops.collapse import ordinal_column
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -91,6 +92,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n_in, n_out = multihost.allsum(n_in, n_out)
         rep = common.report_stream(ctx, args)
         rep.write("Input: %d reads.\n" % n_in)
         rep.write("Output: %d reads.\n" % n_out)

@@ -20,6 +20,7 @@ import sys
 from ...core import codec, native
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -80,6 +81,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n_in, n_out = multihost.allsum(n_in, n_out)
         rep = common.report_stream(ctx, args)
         _shared.in_out_report(rep, n_in, n_out)
         discarded = n_in - n_out

@@ -30,6 +30,7 @@ from ...engine import hostfix
 from ...engine.pipeline import padded_width
 from ...kernels import align as align_dbg
 from ...ops import clipper
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -197,8 +198,8 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
-        # one process: the counts are plain sums (the reference allsums
-        # them across its process group)
+        n_in, n_short, n_nonclip, n_clip, n_n, n_zero = multihost.allsum(
+            n_in, n_short, n_nonclip, n_clip, n_n, n_zero)
         rep = common.report_stream(ctx, args)
         rep.write("Clipping Adapter: %s\n" % st["adapter"])
         rep.write("Min. Length: %d\n" % st["min_length"])

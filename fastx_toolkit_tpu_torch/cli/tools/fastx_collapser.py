@@ -19,9 +19,12 @@ device`` overrides the policy, ``engine/policy.py`` kind ``collapse``:
   merges the batches (count sum, least first appearance).
 
 Output assembly is the reference's: final order (count descending, first
-appearance ascending), the ``rank-count`` names, ``-v`` report.  The port
-runs one process: the reference's merge of the tables across a process
-group comes with the multi-GPU slice.
+appearance ascending), the ``rank-count`` names, ``-v`` report.  In a
+process group (``parallel/multihost``) each process collapses its own
+byte range of the input on either engine; the tables are allgathered and
+merged (counts summed, first appearances shifted by
+``global_record_offset`` and the least kept), so every process holds the
+single-process table, and only process 0 writes it.
 
 Usage:
     python -m fastx_toolkit_tpu_torch.cli.tools.fastx_collapser \\
@@ -41,6 +44,7 @@ from ...device import resolve_device
 from ...engine import policy
 from ...engine.pipeline import to_device
 from ...ops import collapse
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -121,6 +125,12 @@ def _device_table(reader, device):
         n_in_seq += nb
         n_in_reads += int(batch.counts.sum())
         rec_base += nb
+    return _table_arrays(table) + (n_in_seq, n_in_reads)
+
+
+def _table_arrays(table: dict):
+    """A ``{seq: [count, first]}`` table as ``(key_offs, key_buf,
+    uniq_counts, uniq_first)`` arrays, in the dict's order."""
     seqs = list(table.keys())
     uniq_counts = np.array([table[s][0] for s in seqs], np.int64)
     uniq_first = np.array([table[s][1] for s in seqs], np.int64)
@@ -128,7 +138,40 @@ def _device_table(reader, device):
                if seqs else np.zeros(0, np.uint8))
     key_offs = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=key_offs[1:])
-    return key_offs, key_buf, uniq_counts, uniq_first, n_in_seq, n_in_reads
+    return key_offs, key_buf, uniq_counts, uniq_first
+
+
+def merge_tables(key_offs, key_buf, uniq_counts, uniq_first, n_in_seq,
+                 n_in_reads):
+    """The global table of a process group: each process collapsed its
+    own byte-range shard, so its first-appearance indices shift by the
+    global record offset (shards are file-ordered); the (seq -> count,
+    first) tables are allgathered and merged associatively, so every
+    process ends with the identical global table and the rank, count and
+    tie-break order match a single-process run.  Same arguments and
+    return as the engines' tables; the identity outside a process
+    group."""
+    info = multihost.shard_info()
+    if not (info.active and info.collective):
+        return (key_offs, key_buf, uniq_counts, uniq_first, n_in_seq,
+                n_in_reads)
+    offset = multihost.global_record_offset(n_in_seq)
+    local = [
+        (key_buf[key_offs[i]:key_offs[i + 1]].tobytes(),
+         int(uniq_counts[i]), int(uniq_first[i]) + offset)
+        for i in range(len(uniq_counts))
+    ]
+    merged: dict = {}
+    for part in multihost.allgather_object(local):
+        for s, c, f in part:
+            ent = merged.get(s)
+            if ent is None:
+                merged[s] = [c, f]
+            else:
+                ent[0] += c
+                ent[1] = min(ent[1], f)
+    n_in_seq, n_in_reads = multihost.allsum(n_in_seq, n_in_reads)
+    return _table_arrays(merged) + (n_in_seq, n_in_reads)
 
 
 def tool_main(ctx: CliContext, argv) -> int:
@@ -139,7 +182,8 @@ def tool_main(ctx: CliContext, argv) -> int:
         res = _host_table(reader, args)
     else:
         res = _device_table(reader, device)
-    key_offs, key_buf, uniq_counts, uniq_first, n_in_seq, n_in_reads = res
+    key_offs, key_buf, uniq_counts, uniq_first, n_in_seq, n_in_reads = (
+        merge_tables(*res))
 
     uniq_counts = np.asarray(uniq_counts, np.int64)
     uniq_first = np.asarray(uniq_first, np.int64)
@@ -168,7 +212,7 @@ def tool_main(ctx: CliContext, argv) -> int:
         names2=None,
         is_fastq=False,
     )
-    _shared.write_fasta(ctx, args, out)
+    _shared.write_fasta(ctx, args, out, role="merged")
 
     if args.verbose:
         rep = common.report_stream(ctx, args)

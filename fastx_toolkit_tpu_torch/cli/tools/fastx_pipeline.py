@@ -41,6 +41,7 @@ from ...engine.lines import stream_pipeline_lines
 from ...engine.pipeline import to_device
 from ...ops import transforms
 from ...ops.clipper import clip_batch
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from ._shared import BatchReader
@@ -520,8 +521,8 @@ def tool_main(ctx: CliContext, argv) -> int:
     if step is None:
         return 0
     if args.verbose:
-        # one process: the counts are plain sums (the reference allsums
-        # them across its process group)
+        summed = multihost.allsum(n_in, *[int(t) for t in stage_totals])
+        n_in, stage_totals = summed[0], list(summed[1:])
         rep = common.report_stream(ctx, args)
         rep.write("Fused pipeline: %d stages, one device program.\n"
                   % len(cfgs))

@@ -14,9 +14,10 @@ the ``-N`` format.  Two engines give identical accumulators
   (``csrc/stats_hist.cu``), for FASTA the plain scatter reduction.
 
 Report rendering is host-side with the reference's exact integer
-semantics.  The port runs one process: the reference's merge of the
-accumulators across a process group (``multihost.
-merge_stats_accumulators``) comes with the multi-GPU slice.
+semantics.  In a process group (``parallel/multihost``) each process
+accumulates its own byte range of the input; the accumulators merge with
++/min/max (``multihost.merge_stats_accumulators``) and only process 0
+writes the table, on either engine.
 
 Usage:
     python -m fastx_toolkit_tpu_torch.cli.tools.fastx_quality_stats \\
@@ -34,6 +35,7 @@ import numpy as np
 from ...core import codec, native
 from ...device import resolve_device
 from ...ops import stats as stats_ops
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -140,6 +142,10 @@ def tool_main(ctx: CliContext, argv) -> int:
                 )
         acc.merge_partial(*parts)
 
+    # every process accumulated its own input shard; the histograms merge
+    # with +/min/max across the process group and only process 0 renders
+    # (byte-identical to a single-process run)
+    acc = multihost.merge_stats_accumulators(acc)
     text = (
         stats_ops.render_new_format(acc)
         if st["new_format"]
@@ -147,7 +153,8 @@ def tool_main(ctx: CliContext, argv) -> int:
     )
     # the reference writes stats through plain fopen — -z is accepted but
     # never compresses here (fastx_quality_stats.c:443-448)
-    writer = common.OutputWriter(ctx, dataclasses.replace(args, compress=False))
+    writer = common.OutputWriter(
+        ctx, dataclasses.replace(args, compress=False), role="merged")
     writer.write(text.encode())
     writer.close()
     return 0

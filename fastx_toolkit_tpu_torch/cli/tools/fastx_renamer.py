@@ -19,6 +19,7 @@ import numpy as np
 from ...core import codec
 from ...core.records import StringColumn
 from ...ops.collapse import ordinal_column
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -72,6 +73,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        (n,) = multihost.allsum(n)
         rep = common.report_stream(ctx, args)
         rep.write("Renamed: %d reads.\n" % n)
     return 0

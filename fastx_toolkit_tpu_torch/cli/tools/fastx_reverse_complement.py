@@ -18,6 +18,7 @@ import sys
 from ...core import codec
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext
 from . import _shared
@@ -51,6 +52,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        (n,) = multihost.allsum(n)
         rep = common.report_stream(ctx, args)
         rep.write("Printing Reverse-Complement Sequences.\n")
         _shared.in_out_report(rep, n, n)

@@ -24,6 +24,7 @@ import numpy as np
 from ...core import codec, native
 from ...device import resolve_device
 from ...ops import transforms
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, errx
 from . import _shared
@@ -144,6 +145,7 @@ def tool_main(ctx: CliContext, argv) -> int:
     writer.close()
 
     if args.verbose:
+        n_in, n_out = multihost.allsum(n_in, n_out)
         rep = common.report_stream(ctx, args)
         if st["first"] != 1 or st["last"] != 0:
             rep.write("Trimming: base %d to %d\n" % (st["first"], st["last"]))

@@ -5,9 +5,11 @@ Counterpart of ``fastx_toolkit_tpu/cli/tools/fastx_uncollapser.py``
 FASTA input: each ``>rank-count`` record is repeated ``count`` times,
 renamed to sequential read ordinals (``ops/collapse.ordinal_column``).
 With ``-c N``: each line of a tabular file is repeated by the count in
-its N-th tab-separated column.  The port runs one process: the
-reference's byte-range sharding of the input comes with the multi-GPU
-slice.
+its N-th tab-separated column.  Sharded runs (``parallel/multihost``)
+read this process's record-aligned (FASTA) or line-aligned (tabular)
+byte range; in a process group the FASTA ordinals stay global (a
+counting pre-pass and ``global_record_offset``) and the ``-v`` counts
+are allsum'd.
 
 Usage:
     python -m fastx_toolkit_tpu_torch.cli.tools.fastx_uncollapser \\
@@ -24,7 +26,9 @@ import numpy as np
 
 from ...core import codec
 from ...core.records import StringColumn
+from ...core.errors import FastxError
 from ...ops.collapse import ordinal_column
+from ...parallel import multihost
 from .. import common
 from ..common import CliContext, ExitWithStatus, errx
 from . import _shared
@@ -67,6 +71,16 @@ def _uncollapse_fasta(ctx, args):
     reader = _shared.BatchReader(ctx, args, filetype=codec.FASTA_ONLY)
     writer = common.OutputWriter(ctx, args)
     n_in_seq = n_reads = n_out = 0
+    info = multihost.shard_info()
+    if info.active and info.collective:
+        # output IDs are globally sequential read ordinals, so each shard
+        # must know the total read count of all earlier shards: cheap
+        # counting pre-pass over this shard, then an exclusive prefix sum
+        local_reads = 0
+        for batch in _shared.BatchReader(ctx, args, filetype=codec.FASTA_ONLY):
+            local_reads += int(np.asarray(batch.counts, dtype=np.int64).sum())
+        n_out = multihost.global_record_offset(local_reads)
+    id_base = n_out
     for batch in reader:
         counts = np.asarray(batch.counts, dtype=np.int64)
         idx = np.repeat(np.arange(len(batch)), counts)
@@ -80,26 +94,50 @@ def _uncollapse_fasta(ctx, args):
     writer.close()
 
     if args.verbose:
+        n_in_seq, n_reads, n_emitted = multihost.allsum(
+            n_in_seq, n_reads, n_out - id_base)
         rep = common.report_stream(ctx, args)
         rep.write("Input: %d sequences (representing %d reads)\n"
                   % (n_in_seq, n_reads))
         rep.write("Output: %d sequences (representing %d reads)\n"
-                  % (n_out, n_reads))
+                  % (n_emitted, n_reads))
 
 
 def _open_line_stream(ctx, args):
+    """Open the tabular input, shard-aware: in sharded runs this process
+    reads only its line-aligned byte range of the file.  Returns
+    ``(stream, remaining)``: the bytes left to read, None when whole."""
     if args.input_filename == "-" or args.input_filename.startswith("-"):
-        return ctx.stdin
-    try:
-        return open(args.input_filename, "rb")
-    except OSError as e:
-        print("%s: failed to open input file '%s': %s"
-              % (ctx.prog, args.input_filename, e.strerror), file=ctx.stderr)
-        raise ExitWithStatus(1)
+        stream = ctx.stdin
+    else:
+        try:
+            stream = open(args.input_filename, "rb")
+        except OSError as e:
+            print("%s: failed to open input file '%s': %s"
+                  % (ctx.prog, args.input_filename, e.strerror),
+                  file=ctx.stderr)
+            raise ExitWithStatus(1)
+    info = multihost.shard_info()
+    remaining = None
+    if info.active:
+        if (
+            stream is ctx.stdin
+            or not (hasattr(stream, "seekable") and stream.seekable())
+            or not hasattr(stream, "fileno")
+        ):
+            raise FastxError(
+                "sharded/multi-host input requires a seekable input file "
+                "(-i FILE), not STDIN or a pipe"
+            )
+        size = os.fstat(stream.fileno()).st_size
+        lo, hi = multihost.shard_line_range(stream, size, info)
+        stream.seek(lo)
+        remaining = hi - lo
+    return stream, remaining
 
 
 def _uncollapse_tabular(ctx, args, column: int):
-    stream = _open_line_stream(ctx, args)
+    stream, remaining = _open_line_stream(ctx, args)
     block_bytes = int(os.environ.get("FASTX_TPU_BLOCK_BYTES", 64 * 1024 * 1024))
     writer = common.OutputWriter(ctx, args)
     input_count = 0
@@ -107,7 +145,11 @@ def _uncollapse_tabular(ctx, args, column: int):
     carry = b""
     eof = False
     while not eof:
-        block = stream.read(block_bytes)
+        want = block_bytes if remaining is None else min(block_bytes,
+                                                         remaining)
+        block = stream.read(want) if want > 0 else b""
+        if remaining is not None:
+            remaining -= len(block)
         eof = not block
         data = carry + block
         lines = data.split(b"\n")
@@ -140,6 +182,8 @@ def _uncollapse_tabular(ctx, args, column: int):
     writer.close()
 
     if args.verbose:
+        input_count, output_count = multihost.allsum(input_count,
+                                                     output_count)
         rep = common.report_stream(ctx, args)
         rep.write("Input: %d lines (with collapsed sequence identifiers)\n"
                   % input_count)

@@ -50,7 +50,6 @@ import torch
 
 from ..core import codec, native
 from .pipeline import (
-    _STATS,
     PipelineConfig,
     _thresholds,
     decisions_pipeline,
@@ -145,12 +144,21 @@ class LineEngines:
 
     def unpacked(self):
         """The dispatch function for classic chunks: width-padded ``(bases,
-        quals, lengths)`` host arrays -> :class:`_Dispatch`."""
+        quals, lengths, counts)`` host arrays -> :class:`_Dispatch`.  The
+        counts go up only for the stats reduction, whose result the
+        stream drops, as the reference's does."""
         tie = self.tie
-        return lambda bases, quals, lengths: self._run(
-            lambda *a: decisions_pipeline(self.cfg, *a, device=self.device,
-                                          tie_flag=tie),
-            (bases, quals, lengths))
+        if not self.cfg.with_stats:
+            return lambda bases, quals, lengths, _counts: self._run(
+                lambda *a: decisions_pipeline(self.cfg, *a,
+                                              device=self.device,
+                                              tie_flag=tie),
+                (bases, quals, lengths))
+        return lambda bases, quals, lengths, counts: self._run(
+            lambda b, q, ln, c: decisions_pipeline(
+                self.cfg, b, q, ln, device=self.device, tie_flag=tie,
+                counts=c)[:3],
+            (bases, quals, lengths, counts))
 
 
 def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
@@ -170,8 +178,6 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
     """
     if native.LIB is None:
         raise RuntimeError("stream_pipeline_lines requires the native codec")
-    if cfg.with_stats:
-        raise NotImplementedError(_STATS)
     if engines is None:
         engines = LineEngines(cfg, device)
     if chunks is None:
@@ -302,8 +308,8 @@ def stream_pipeline_lines(reader, cfg: PipelineConfig, *, out_fastq: bool,
                     # parsed batch through the unpacked body
                     flush_all()
                     batch = reader.parse_chunk(chunk, line_base)
-                    bases, quals, lengths, _counts = to_device(batch)
-                    fut = engines.unpacked()(bases, quals, lengths)
+                    bases, quals, lengths, counts = to_device(batch)
+                    fut = engines.unpacked()(bases, quals, lengths, counts)
                     blocks_q.put(("classic", batch))
                     inflight_q.put((len(batch), fut))
                     continue

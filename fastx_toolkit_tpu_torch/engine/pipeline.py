@@ -24,11 +24,13 @@ bodies that give identical decisions:
 :func:`packed_decisions_pipeline` routes a packed chunk as the reference
 does: the fast body inside the packed kernels' gate (an ACGTN adapter of
 H_pad <= 72 within the field bounds), else the unpacking body and K4.
-The stats reduction (``with_stats``) raises: its only consumer is the
-sharded pipeline (``parallel/mesh.py`` in the reference), which comes with
-the multi-GPU slice; the reference's bodies compute it with
-``ops/stats.counts_only``, which the port has.  Every body runs on the
-CPU through the kernels' plain versions.
+With ``cfg.with_stats`` the unpacked and the unpacking bodies also take
+the reads' ``counts`` column and append the per-cycle nucleotide counts
+of the kept reads (``ops/stats.counts_only``, ``[L, 6]`` int32) to what
+they return, as the reference's bodies do; :func:`fused_pipeline` is the
+reference's single-device step over ``(bases, quals, lengths, counts)``,
+and ``parallel/mesh.py`` sums the counts over a process group.  Every
+body runs on the CPU through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 from ..core import native
 from ..kernels.align_cuda import adapter_codes, align_batch_packed, packed_ok
 from ..kernels.counts_cuda import packed_counts
+from ..ops import stats as stats_ops
 from ..ops import transforms
 from ..ops.clipper import (
     adapter_cutoff_index,
@@ -48,10 +51,6 @@ from ..ops.clipper import (
     clip_cut_lengths,
     clip_write_mask,
 )
-
-_STATS = ("the stats reduction (with_stats) feeds only the sharded "
-          "multi-GPU pipeline, a later port slice")
-
 
 def padded_width(l: int) -> int:  # noqa: E741
     """The reference's padded batch width: L to a multiple of 32 (>= 32).
@@ -264,20 +263,29 @@ def packed_fast_body(b2, planes, lengths, cfg: PipelineConfig,
     return l, keep, fragile
 
 
+def _stats_counts(cfg: PipelineConfig, counts, what: str):
+    """The ``counts`` column a body needs: required with ``with_stats``
+    (a TypeError without it, as the reference's steps take it as an
+    argument then), not read otherwise."""
+    if cfg.with_stats and counts is None:
+        raise TypeError("%s with with_stats needs the counts column" % what)
+    return counts
+
+
 def packed_decisions_pipeline(cfg: PipelineConfig, b2, planes, lengths, *,
                               has_n_plane: bool, device,
                               tie_flag: bool = False,
-                              seq_len: int | None = None):
+                              seq_len: int | None = None, counts=None):
     """Decisions for one 2-bit packed chunk (host numpy arrays or
     tensors), computed on ``device``: ``(l, keep, fragile)`` tensors.
     ``seq_len`` is the longest read's length (default: all the columns
     ``b2`` holds).  A chunk inside :func:`packed_fast_ok` takes the
     fully-packed body (K1 or K3, and K2); any other (an adapter outside
-    ACGTN or of H_pad > 72) takes :func:`packed_pipeline_body` (K4).
-
-    Raises NotImplementedError for the stats reduction (see ``_STATS``)."""
-    if cfg.with_stats:
-        raise NotImplementedError(_STATS)
+    ACGTN or of H_pad > 72, or the stats reduction) takes
+    :func:`packed_pipeline_body` (K4).  With ``cfg.with_stats`` the
+    reads' ``counts`` are required and the per-cycle counts are appended:
+    ``(l, keep, fragile, count)``."""
+    _stats_counts(cfg, counts, "packed_decisions_pipeline")
     if seq_len is None:
         seq_len = b2.shape[1] * 4
     dev = torch.device(device)
@@ -286,20 +294,23 @@ def packed_decisions_pipeline(cfg: PipelineConfig, b2, planes, lengths, *,
     if packed_fast_ok(cfg, seq_len):
         return packed_fast_body(b2, planes, lengths, cfg, has_n_plane,
                                 tie_flag=tie_flag, seq_len=seq_len)
+    if counts is not None:
+        counts = torch.as_tensor(counts).to(dev)
     return packed_pipeline_body(b2, planes, lengths, cfg, seq_len=seq_len,
                                 two_bit=True, has_n_plane=has_n_plane,
-                                tie_flag=tie_flag)
+                                tie_flag=tie_flag, counts=counts)
 
 
 def pipeline_body(bases, quals, lengths, cfg: PipelineConfig,
-                  tie_flag: bool = False):
+                  tie_flag: bool = False, counts=None):
     """One fused step over an unpacked batch on its device: every
     per-read tool of the chain applied back to back.  Returns ``(bases,
     quals, l, keep, fragile)``: the transformed batch, final lengths (0
     where discarded), the keep mask, and the DP's tie_fragile flags (all
-    False without the clipper or ``tie_flag``)."""
-    if cfg.with_stats:
-        raise NotImplementedError(_STATS)
+    False without the clipper or ``tie_flag``); with ``cfg.with_stats``
+    the reads' ``counts`` are required and the per-cycle nucleotide
+    counts of the kept reads follow: ``(..., fragile, count)``."""
+    _stats_counts(cfg, counts, "pipeline_body")
     b, q, l = bases, quals, lengths.to(torch.int32)  # noqa: E741
     b, q, l, keep = transforms.trimmer(b, q, l, last=cfg.trim_last)  # noqa: E741
     if cfg.with_filter:
@@ -328,21 +339,44 @@ def pipeline_body(bases, quals, lengths, cfg: PipelineConfig,
     if cfg.to_fasta_discard_n:
         keep &= ~transforms.contains_n(b, l)
     l = torch.where(keep, l, 0).to(torch.int32)  # noqa: E741
+    if cfg.with_stats:
+        return b, q, l, keep, fragile, stats_ops.counts_only(b, l, counts)
     return b, q, l, keep, fragile
 
 
+def fused_pipeline(cfg: PipelineConfig):
+    """The reference's single-device step: a callable over ``(bases,
+    quals, lengths, counts)`` tensors of one device returning ``(bases,
+    quals, l, keep, count)``, where ``count`` is the per-cycle counts of
+    the kept reads with ``cfg.with_stats`` and zeros ``[L, 6]`` without,
+    as in the reference."""
+
+    def step(bases, quals, lengths, counts):
+        b, q, l, keep, _fragile, *count = pipeline_body(  # noqa: E741
+            bases, quals, lengths, cfg, counts=counts)
+        if not count:
+            count = [torch.zeros((b.shape[1], stats_ops.NSLOTS),
+                                 dtype=torch.int32, device=b.device)]
+        return b, q, l, keep, count[0]
+
+    return step
+
+
 def decisions_pipeline(cfg: PipelineConfig, bases, quals, lengths, *,
-                       device, tie_flag: bool = False):
+                       device, tie_flag: bool = False, counts=None):
     """Ship decisions, not data: :func:`pipeline_body` on ``device`` for a
     padded batch (host numpy arrays or tensors), returning only ``(l,
-    keep, fragile)`` per read.  Every byte edit of the chain (the
-    masker's) is re-applied on the host at render time."""
+    keep, fragile)`` per read, and ``count`` after them with
+    ``cfg.with_stats``.  Every byte edit of the chain (the masker's) is
+    re-applied on the host at render time."""
+    _stats_counts(cfg, counts, "decisions_pipeline")
     dev = torch.device(device)
     bases, quals, lengths = (torch.as_tensor(a).to(dev)
                              for a in (bases, quals, lengths))
-    _b, _q, l, keep, fragile = pipeline_body(bases, quals, lengths, cfg,
-                                             tie_flag=tie_flag)
-    return l, keep, fragile
+    if counts is not None:
+        counts = torch.as_tensor(counts).to(dev)
+    return pipeline_body(bases, quals, lengths, cfg, tie_flag=tie_flag,
+                         counts=counts)[2:]
 
 
 # ---------------------------------------------------------------------------
@@ -467,14 +501,15 @@ def _unpack4(b4, planes):
 def packed_pipeline_body(b4, planes, lengths, cfg: PipelineConfig,
                          seq_len: int | None = None, two_bit: bool = False,
                          has_n_plane: bool | None = None,
-                         tie_flag: bool = False):
+                         tie_flag: bool = False, counts=None):
     """:func:`pipeline_body` on a packed upload, unpacked on the device:
     decisions-identical to it.  ``seq_len`` is the true (pre-packing) L;
     ``two_bit`` selects the pack_batch2 layout; ``has_n_plane=False``
     (2-bit only) means the chunk was verified N-free and the N plane was
-    not shipped.  Returns ``(l, keep, fragile)``."""
-    if cfg.with_stats:
-        raise NotImplementedError(_STATS)
+    not shipped.  Returns ``(l, keep, fragile)``; with ``cfg.with_stats``
+    the reads' ``counts`` are required and the per-cycle counts of the
+    kept reads (``[seq_len or Le, 6]``) follow."""
+    _stats_counts(cfg, counts, "packed_pipeline_body")
     if has_n_plane is None:
         has_n_plane = two_bit
     lengths = lengths.to(torch.int32)
@@ -532,4 +567,6 @@ def packed_pipeline_body(b4, planes, lengths, cfg: PipelineConfig,
     if cfg.to_fasta_discard_n:
         keep &= ~transforms.contains_n(b, l)
     l = torch.where(keep, l, 0).to(torch.int32)  # noqa: E741
+    if cfg.with_stats:
+        return l, keep, fragile, stats_ops.counts_only(b, l, counts)
     return l, keep, fragile

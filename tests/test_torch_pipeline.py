@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from fastx_toolkit_tpu.engine import pipeline as ref_pipeline
 from fastx_toolkit_tpu.engine.pipeline import pack_batch2
@@ -115,7 +116,8 @@ def test_outside_the_gate_raises():
     """Chunks outside K1's gate decide as the reference does: a 32-base
     adapter (the wide packed DP, K3's route), an adapter outside ACGTN
     (the unpacking body, K4's route) and reads of up to 600 bp (K3's
-    route); the stats reduction still raises (the multi-GPU slice)."""
+    route); with the stats reduction the decisions and the per-cycle
+    counts equal the reference's ``pipeline_body`` with ``with_stats``."""
     for adapter, L in ((b"ACGT" * 8, 72), (b"CTGTAGGCACCATCAAU", 72),
                        (ADAPTER, 600)):
         cfg = RefConfig(adapter=adapter)
@@ -133,13 +135,24 @@ def test_outside_the_gate_raises():
         np.testing.assert_array_equal(gl.numpy(), rl, err_msg="l")
         np.testing.assert_array_equal(gk.numpy(), rk, err_msg="keep")
         np.testing.assert_array_equal(gf.numpy(), rf, err_msg="fragile")
+    cfg = RefConfig(adapter=ADAPTER, with_stats=True)
+    rng = np.random.default_rng(139)
+    bases, quals, lengths = _chunk(rng, 24, 100, True)
+    counts = rng.integers(1, 4, 24).astype(np.int32)
+    ref = ref_pipeline.pipeline_body(bases, quals, lengths.astype(np.int32),
+                                     counts, cfg)
+    got = port_pipeline.pipeline_body(
+        *(torch.from_numpy(a) for a in (bases, quals,
+                                        lengths.astype(np.int32))),
+        port_pipeline.config_from_reference(cfg),
+        counts=torch.from_numpy(counts))
+    for name, g, r in zip(("l", "keep", "count"), got[2:4] + got[5:],
+                          (ref[2], ref[3], ref[4])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    assert int(np.asarray(ref[4]).sum()) > 0
     b2 = np.zeros((4, 26), np.uint8)
     planes = np.zeros((4, 3, 13), np.uint8)
     lengths = np.full(4, 100, np.int16)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_pipeline.packed_decisions_pipeline(
-            port_pipeline.PipelineConfig(with_stats=True), b2, planes,
-            lengths, has_n_plane=False, device="cpu")
     # without the clipper the DP's read-length bound does not apply
     l, keep, _ = port_pipeline.packed_decisions_pipeline(
         port_pipeline.PipelineConfig(with_clip=False, with_artifacts=False),
