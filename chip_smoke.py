@@ -54,8 +54,8 @@ of the JAX package:
    bits on word edges, at L = 64, 150 and 600, with and without the N
    plane);
    in phase 4, K4 again on the inputs of every launch that paths (a) and
-   (c) made, K3 on those of path (b) and K5 on those of path (d) (kept as
-   device copies during the run), so each is held
+   (c) made, K3 on those of path (b) and K5b and K5 on those of path (d)
+   (kept as device copies during the run), so each is held
    against its plain version at each shape a path gives it; P (the
    plane-op probe, ``csrc/plane_probe.cu``) in every variant (``reg`` and
    ``smem``, the four TPU cases, DPX for the dependent two) at every shape
@@ -77,8 +77,10 @@ of the JAX package:
          classic per-batch loop (K4), its ``-v`` report held against
          per-stage counts from the host replay;
    (d)   ``fastx_quality_stats -Q 33`` and ``-Q 33 -N`` on the headline
-         and the TruSeq lanes with the ``device`` engine
-         (``FASTX_STATS_PATH=device``: K5), each held against a run with
+         and the TruSeq lanes, and ``-Q 33`` on (a)'s small-RNA lane, with
+         the ``device`` engine (``FASTX_STATS_PATH=device``: K5b on the
+         pure-ACGT lanes' 2-bit codes, K5 on the small-RNA lane, whose
+         blocks hold Ns), each held against a run with
          ``FASTX_STATS_PATH=host`` (the native histogram, the default; no
          kernel);
    (e)   ``fastx_collapser -Q 33 -v`` on a seeded 1M-read small-RNA lane
@@ -117,14 +119,14 @@ of the JAX package:
          SPEC``, started with ``cli/pod.worker_env``'s environment, so
          every worker shares the one card and merges over gloo) each on
          its own byte range: at N = 2 the headline (K1, K2), ``-v``
-         (classic, K4), ``fastx_quality_stats`` on both engines (K5 on
+         (classic, K4), ``fastx_quality_stats`` on both engines (K5b on
          ``device``), ``fastx_collapser -Q 33 -v`` on both engines,
          ``fastx_uncollapser -v`` on its merged output and
          ``fastq_quality_filter -q 20 -p 50 -v``: the per-read tools'
          shards concatenated, and the merged outputs, byte for byte
          against the outputs paths main, (c)-(f) held, the ``-v`` reports
          printed once, by rank 0, equal to the single-process reports;
-         each worker's launch counters (K1, K2, K4, K5; no K3), and the
+         each worker's launch counters (K1, K2, K4, K5b; no K3), and the
          first launch of each kernel a worker made held against its
          plain version; then readings of the headline at N = 1, 2 and 4
          (the sharded run's wall between barriers, median of 3), the
@@ -138,6 +140,19 @@ of the JAX package:
          for the tally) on the card against its single-device function on
          the same tensors, tolerance 0; ``sharded_pipeline`` on K4's
          counter, its launch against the plain version;
+   (i)   the port's bench (``fastx_toolkit_tpu_torch/bench.py``) in
+         process at 262,144 reads and 3 timed runs a mode: the headline,
+         ``--config 1``-``5`` (3 and 5 on both engines), ``--device
+         --config 0``, ``3`` and ``5`` and ``--host`` (``--scaling``,
+         ``--pertool``, ``--meshsweep`` and ``--cbaseline`` left out for
+         time: process starts, not kernels): each mode's metrics by
+         name, every line naming the card; the dumped outputs of configs
+         0-5 byte for byte against host references (the float32 host
+         decisions, the stats CLI's host engine, the dict reference);
+         configs 3 and 5 are the tools' own runs; K1 and K2 on the
+         headline, config 4 and ``--device --config 0``, K5b on config
+         3's device path and ``--device --config 3``, the first launch of
+         each held against its plain version;
    (p)   the probe's entry point (``fastx_toolkit_tpu_torch.probe``'s
          ``measure``, budget 15 s): every variant timed at the DP shapes
          and the TPU's, its lines in ``probe.jsonl`` beside the build;
@@ -178,7 +193,6 @@ import json
 import os
 import re
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -191,7 +205,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from fastx_toolkit_tpu_torch import probe, synth
+from fastx_toolkit_tpu_torch import bench, probe, synth
+from fastx_toolkit_tpu_torch.bench import (
+    COUNT_OPS_PER_BASE,
+    DP_OPS_PER_CELL,
+    INT32_LANES,
+    ISSUE_LANES,
+    free_port,
+    roofline,
+)
 from fastx_toolkit_tpu_torch.cli import pod
 from fastx_toolkit_tpu_torch.cli.common import CliContext, run_tool_main
 from fastx_toolkit_tpu_torch.cli.tools import (
@@ -355,19 +377,6 @@ META = {  # name -> (source, the TPU kernel it replaces)
     "plane_probe": ("fastx_toolkit_tpu_torch/csrc/plane_probe.cu",
                     "bench.py:1274"),
 }
-# the least work a DP cell or a counted base needs, in int32 operations
-# (DP: ~10 for the score path — compares, selects, adds — and ~10 for the
-# path-statistic payload; counts: extract the code and the N bit, bump a
-# counter; histogram: classify, bin the quality, form the id, tally)
-DP_OPS_PER_CELL = 20
-COUNT_OPS_PER_BASE = 5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-INT32_LANES = 132 * 64     # SMs x INT32 lanes (the assumed peak)
-# SMs x 4 schedulers x 32 lanes: one warp instruction a clock per
-# scheduler, the most int32 instructions the card can issue (P showed the
-# compiler spreading int32 adds over the INT32 and FMA pipes, past the
-# INT32 lanes' rate): the bounds' operation term
-ISSUE_LANES = 132 * 4 * 32
 # K3's checks at the edges of its lane groups (9 rows a lane): H at 1, k,
 # k + 1, 2k, 2k + 1, 31-33, 4k, 4k + 1, 64 and 72
 K3_EDGE_H = (1, 9, 10, 18, 19, 31, 32, 33, 36, 37, 64, 72)
@@ -398,6 +407,38 @@ PROBE_TIMED = ("reg", "dependent", False, 33, probe.DP_B)
 POD_WORKERS = (2, 1, 4)
 POD_WARM = 20_000
 POD_TIMEOUT = 300
+# path (i): the port's bench in process at BENCH_READS reads and
+# BENCH_ITERS timed runs; each mode with its environment, the metrics it
+# prints and the config whose output it dumps (None: no output)
+BENCH_READS = 262_144
+BENCH_ITERS = 3
+BENCH_MODES = (
+    ("default", [], {}, (bench.METRIC[0],), 0),
+    ("--config 1", ["--config", "1"], {}, (bench.METRIC[1],), 1),
+    ("--config 2", ["--config", "2"], {}, (bench.METRIC[2],), 2),
+    ("--config 3", ["--config", "3"], {}, (bench.METRIC[3],), 3),
+    ("--config 3, device path", ["--config", "3"],
+     {"FASTX_STATS_PATH": "device"}, (bench.METRIC[3],), 3),
+    ("--config 4", ["--config", "4"], {}, (bench.METRIC[4],), 4),
+    ("--config 5", ["--config", "5"], {}, (bench.METRIC[5],), 5),
+    ("--config 5, device path", ["--config", "5"],
+     {"FASTX_COLLAPSE_PATH": "device"}, (bench.METRIC[5],), 5),
+    ("--device --config 0", ["--device", "--config", "0"], {},
+     ("reads_per_sec_device_resident_fused_step", "speed_of_light_config0",
+      "device_stage_decomposition"), None),
+    ("--device --config 3", ["--device", "--config", "3"], {},
+     (bench.METRIC[3] + "_device_resident", "speed_of_light_config3"), None),
+    ("--device --config 5", ["--device", "--config", "5"], {},
+     (bench.METRIC[5] + "_device_resident", "speed_of_light_config5"), None),
+    ("--host", ["--host"], {}, ("reads_per_sec_host_codec_only_lines",),
+     None),
+)
+# the kernel launches each mode must count
+BENCH_NEEDS = {"default": ("align_packed12", "packed_counts"),
+               "--config 4": ("align_packed12", "packed_counts"),
+               "--config 3, device path": ("stats_hist_b2",),
+               "--device --config 0": ("align_packed12", "packed_counts"),
+               "--device --config 3": ("stats_hist_b2",)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -689,15 +730,6 @@ def stats_chunk(data):
     return to_device(batch)[:3]
 
 
-def roofline(ops, nbytes, ops_per_s):
-    """(ms, bound_by): the larger of ``ops`` int32 operations at
-    ``ops_per_s`` and ``nbytes`` of device memory over 3.35 TB/s."""
-    t_ops = ops / ops_per_s
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def probe_rates(results):
     """The rates P reached at the DP shapes: the best ``reg`` int32
     plane-op rate at each H and over all H, and the best ``smem`` int32
@@ -810,7 +842,7 @@ def frames(data):
         pos = end
 
 
-def host_reference(data, cfg):
+def host_reference(data, cfg, out_fastq=True):
     """The lane's output rendered from float32 host decisions over every
     read (numpy and the native float32 clipper; no kernel runs)."""
     out = []
@@ -826,8 +858,8 @@ def host_reference(data, cfg):
         out.append(native.render_lines(
             fr.buf, fr.name_starts, fr.name_lens, fr.seq_starts,
             fr.qual_starts, fr.name2_starts, fr.name2_lens, l,
-            keep.astype(np.uint8), out_fastq=True, q_offset=33,
-            mask_thr=cfg.mask_q))
+            keep.astype(np.uint8), out_fastq=out_fastq, q_offset=33,
+            mask_thr=cfg.mask_q if cfg.with_mask else None))
     return b"".join(out), n_kept
 
 
@@ -1035,12 +1067,6 @@ def formatter_reference(fasta, width, tabular):
     return b"".join(out)
 
 
-def free_port() -> int:
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
-
-
 @contextlib.contextmanager
 def first_launches():
     """Keep device copies of the inputs of the first launch of each kernel
@@ -1124,13 +1150,26 @@ def check_kept(kept):
     return out
 
 
+@contextlib.contextmanager
+def environ(env):
+    """``os.environ`` with ``env`` set inside the block, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def worker_run(tool, argv, env):
     """One in-process run of the port's CLI ``tool`` as its process would
     run it (``run_tool_main``), with ``env`` set for the run and the launch
     counters set to 0 just before; fails on a status other than 0."""
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with environ(env):
         mod = importlib.import_module("fastx_toolkit_tpu_torch.cli.tools."
                                       + tool)
         sys.argv = [tool]
@@ -1141,12 +1180,6 @@ def worker_run(tool, argv, env):
         secs = time.perf_counter() - t0
         ln = counters()
         sys.stdout.flush()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     if status != 0:
         raise RuntimeError("%s %s exited with status %d"
                            % (tool, " ".join(argv), status))
@@ -1299,6 +1332,112 @@ def shard_bytes(path, n):
         with open("%s.shard-%05d-of-%05d" % (path, k, n), "rb") as fh:
             parts.append(fh.read())
     return b"".join(parts)
+
+
+def run_bench(argv, env, dump):
+    """One in-process run of the port's bench (``bench.main(argv)``) with
+    ``env``, ``FASTX_BENCH_ITERS=BENCH_ITERS`` and ``FASTX_BENCH_DUMP=dump``
+    set for the run and the launch counters set to 0 just before: ``(JSON
+    lines, seconds, launches)``; fails on a status other than 0."""
+    out, err = io.StringIO(), io.StringIO()
+    with environ(dict(env, FASTX_BENCH_ITERS=str(BENCH_ITERS),
+                      FASTX_BENCH_DUMP=dump)):
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                status = bench.main(argv)
+        except BaseException:
+            sys.stderr.write(err.getvalue()[-4000:])
+            raise
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ln = counters()
+    if status != 0:
+        fail("(i) bench %s: status %d; stderr:\n%s"
+             % (" ".join(argv), status, err.getvalue()[-4000:]))
+    return [json.loads(x) for x in out.getvalue().splitlines()], secs, ln
+
+
+def bench_path(launches, errs):
+    """Path (i): every mode of ``BENCH_MODES`` through the port's bench in
+    process at ``BENCH_READS`` reads, each with the launch counters set to
+    0 just before and read just after (into ``launches``): its metrics by
+    name, every line naming the card (name, power limit, count) and none
+    with ``vs_baseline``; the dumped outputs of configs 0-5 byte for byte
+    against host references that never touch a kernel (the float32 host
+    decisions for 0, 1, 2 and 4, the stats CLI's host engine for 3, the
+    dict reference for 5); the kernels each mode must launch
+    (``BENCH_NEEDS``: K5b on config 3's device path and on ``--device
+    --config 3``), and the first launch of each kernel held against its
+    plain version (into ``errs``).  Returns each mode's ``(seconds,
+    lines)``."""
+    t_i = time.perf_counter()
+    bench.N_READS = BENCH_READS
+    lane = synth.synth_lane_bytes(BENCH_READS, READ_LEN)
+    lane_4 = synth.synth_lane_bytes(bench.CONFIG_READS[4], READ_LEN)
+    want = {}
+    for n in (0, 1, 2, 4):
+        cfg_n, fastq_n = bench.config_cfg(n)
+        want[n] = host_reference(lane_4 if n == 4 else lane, cfg_n,
+                                 fastq_n)[0]
+    with environ({"FASTX_STATS_PATH": "host"}):
+        status, want[3], _rep, _s, ln = run_cli(
+            fastx_quality_stats, "fastx_quality_stats", ["-Q", "33"], lane)
+    if status != 0 or any(ln.values()):
+        fail("(i) the stats host reference: status %d, launches %s"
+             % (status, ln))
+    want[5] = collapse_reference(lane)[0]
+    print("  (i) lanes %d and %d reads, host references (%.1f s)"
+          % (BENCH_READS, bench.CONFIG_READS[4], time.perf_counter() - t_i),
+          flush=True)
+    dev_card = {"platform": "gpu", "name": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp, first_launches() as kept:
+        dump = os.path.join(tmp, "dump")
+        for label, argv, env, metrics, dump_n in BENCH_MODES:
+            if os.path.exists(dump):
+                os.remove(dump)
+            lines, secs, ln = run_bench(argv, env, dump)
+            launches["i " + label] = ln
+            res[label] = (secs, lines)
+            got = [r["metric"] for r in lines]
+            if sorted(got) != sorted(metrics):
+                fail("(i) bench %s printed %s, not %s" % (label, got,
+                                                         list(metrics)))
+            for r in lines:
+                d = r["device"]
+                if ({k: d.get(k) for k in dev_card} != dev_card
+                        or not d.get("power_limit_w")
+                        or "vs_baseline" in r):
+                    fail("(i) bench %s: a line names %s as the card (%s)"
+                         % (label, d, r["metric"]))
+            if dump_n is not None:
+                with open(dump, "rb") as fh:
+                    check_bytes("(i) bench %s" % label, fh.read(),
+                                want[dump_n])
+            missing = [k for k in BENCH_NEEDS.get(label, ()) if ln[k] <= 0]
+            if missing:
+                fail("(i) bench %s launched no %s (%s)" % (label, missing,
+                                                         ln))
+            print("  (i) bench %-24s %6.1f s, %s%s; launches %s" % (
+                label, secs, ", ".join(
+                    "%s %s" % (r["metric"], r.get("value", r.get(
+                        "pct_of_sol"))) for r in lines),
+                "; output equals the host reference"
+                if dump_n is not None else "", ln), flush=True)
+    for k, (err, shape) in check_kept(kept).items():
+        errs[k] = max(errs[k], err)
+        if err:
+            fail("(i) %s's first launch %s differs from the plain version "
+                 "(%d)" % (k, shape, err))
+        print("  (i) %s's first launch %s equals the plain version, "
+              "max_abs_err=0" % (k, shape), flush=True)
+    print("  (i) the bench's modes (%.1f s for the path)"
+          % (time.perf_counter() - t_i), flush=True)
+    return res
 
 
 def main():
@@ -1831,11 +1970,18 @@ def main():
     k4_path_check("c", seen_c, ln["align_unpacked"])
     del seen_c
 
-    # (d) fastx_quality_stats, old and -N formats, on two lanes: the device
-    # engine (K5) against the host engine (the default)
+    # (d) fastx_quality_stats, old and -N formats, on the two pure-ACGT
+    # lanes (the device engine's K5b) and the old format on the small-RNA
+    # lane, whose blocks hold Ns (K5), against the host engine (the
+    # default)
     stats_s, stats_want = {}, {}
-    for lane, lane_data in (("headline", data), ("TruSeq", data_ts)):
-        for argv in (["-Q", "33"], ["-Q", "33", "-N"]):
+    for lane, lane_data, formats, kernel in (
+            ("headline", data, (["-Q", "33"], ["-Q", "33", "-N"]),
+             "stats_hist_b2"),
+            ("TruSeq", data_ts, (["-Q", "33"], ["-Q", "33", "-N"]),
+             "stats_hist_b2"),
+            ("small-RNA", data_rna, (["-Q", "33"],), "stats_hist")):
+        for argv in formats:
             label = "(d) fastx_quality_stats %s, %s lane" % (" ".join(argv),
                                                              lane)
             os.environ["FASTX_STATS_PATH"] = "device"
@@ -1861,18 +2007,21 @@ def main():
                      % (label, status, h_status))
             check_bytes(label, got, want_d)
             stats_want[(lane, tuple(argv))] = want_d
-            if ln["stats_hist"] <= 0 or any(h_ln.values()):
-                fail("%s: K5 launches %s on the device engine, %s on the "
-                     "host engine" % (label, ln, h_ln))
-            if len(seen_d) != ln["stats_hist"]:
-                fail("%s: %d K5 launches counted, %d kept"
-                     % (label, ln["stats_hist"], len(seen_d)))
+            other = ("stats_hist" if kernel == "stats_hist_b2"
+                     else "stats_hist_b2")
+            if ln[kernel] <= 0 or ln[other] or any(h_ln.values()):
+                fail("%s: launches %s on the device engine (expected %s), "
+                     "%s on the host engine" % (label, ln, kernel, h_ln))
+            if len(seen_d) != ln[kernel]:
+                fail("%s: %d %s launches counted, %d kept"
+                     % (label, ln[kernel], kernel, len(seen_d)))
             for i, (b2_, c_, q_, l_) in enumerate(seen_d):
-                k5_check("K5 path (d) launch %d [%d x %d]"
-                         % (i, q_.shape[0], q_.shape[1]), c_, q_, l_, b2=b2_)
+                k5_check("%s path (d) launch %d [%d x %d]"
+                         % ("K5b" if b2_ else "K5", i, q_.shape[0],
+                            q_.shape[1]), c_, q_, l_, b2=b2_)
             del seen_d
-    print("  (d) outputs equal the host engine's on both lanes and formats",
-          flush=True)
+    print("  (d) outputs equal the host engine's on the three lanes and "
+          "both formats", flush=True)
 
     # (e) fastx_collapser -Q 33 -v on a 1M-read small-RNA lane with
     # miRNA-like duplication, on the device engine and the host engine
@@ -2193,7 +2342,7 @@ def main():
                     launches["h %s rank %d" % (nm, rank)] = ln
                     need = {"head": ("align_packed12", "packed_counts"),
                             "classic": ("align_unpacked",),
-                            "stats_device": ("stats_hist",)}.get(nm, ())
+                            "stats_device": ("stats_hist_b2",)}.get(nm, ())
                     if any(ln[k] <= 0 for k in need) or (
                             not need and any(ln.values())) or (
                             nm == "head" and ln["align_packed"]):
@@ -2204,7 +2353,7 @@ def main():
                     print("  (h) rank %d %s %s: %.3f s, launches %s"
                           % (rank, tool, nm, run["s"], ln), flush=True)
                 for k in ("align_packed12", "packed_counts",
-                          "align_unpacked", "stats_hist"):
+                          "align_unpacked", "stats_hist_b2"):
                     if k not in js["checked"]:
                         fail("(h) rank %d kept no launch of %s" % (rank, k))
                 for k, (err, shape) in js["checked"].items():
@@ -2340,6 +2489,13 @@ def main():
     print("  mesh: the five sharded_* equal their single-device functions "
           "on %d reads on the card at world size 1 (NCCL) (%.1f s)"
           % (CHUNK, time.perf_counter() - t_m), flush=True)
+
+    # (i) the port's bench in process: every mode but --pertool,
+    # --meshsweep and --cbaseline, the dumped outputs of configs 0-5
+    # against host references, K5b on config 3's device path
+    bench_res = bench_path(launches, errs)
+    for line in (r for _s, lines in bench_res.values() for r in lines):
+        print("    " + json.dumps(line), flush=True)
 
     # (p) the probe's entry point (python -m fastx_toolkit_tpu_torch.probe)
     # with a budget of 15 s; its int32 and shared-memory rates give the

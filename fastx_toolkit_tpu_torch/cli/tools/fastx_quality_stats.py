@@ -9,9 +9,11 @@ the ``-N`` format.  Two engines give identical accumulators
   ``native.validate_records``, ``native.stats_lines_q``), or the parsed
   batch through ``ops/stats.host_accumulate``;
 * ``device`` — each parsed batch moves to the device
-  ``FASTX_TORCH_DEVICE`` names (default ``cuda``) and goes through
-  ``ops/stats.accumulate_dispatch``: for FASTQ the histogram kernel K5
-  (``csrc/stats_hist.cu``), for FASTA the plain scatter reduction.
+  ``FASTX_TORCH_DEVICE`` names (default ``cuda``): a FASTQ batch whose
+  reads are pure ACGT travels 2-bit packed to the histogram kernel's
+  2-bit entry K5b (``csrc/stats_hist.cu``, :func:`b2_inputs`), any other
+  batch goes through ``ops/stats.accumulate_dispatch``: for FASTQ the
+  histogram kernel K5, for FASTA the plain scatter reduction.
 
 Report rendering is host-side with the reference's exact integer
 semantics.  In a process group (``parallel/multihost``) each process
@@ -31,9 +33,12 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from ...core import codec, native
 from ...device import resolve_device
+from ...engine.pipeline import PipelineConfig, pack_batch2, scan_alphabet
+from ...kernels.stats_cuda import stats_hist_b2
 from ...ops import stats as stats_ops
 from ...parallel import multihost
 from .. import common
@@ -90,6 +95,38 @@ USAGE = (
 )
 
 
+# pack_batch2 with no quality planes: the 2-bit codes alone
+_CODES_ONLY = PipelineConfig(with_filter=False, with_qtrim=False,
+                             with_mask=False)
+
+
+def b2_inputs(bases, quals, lengths, device):
+    """K5b's inputs for a batch of pure-ACGT reads: the bases 2-bit packed
+    (``pack_batch2``, no planes), the quality values and the lengths, as
+    tensors on ``device``; None when any base is outside ACGT."""
+    bases = np.ascontiguousarray(bases, np.uint8)
+    pure, has_n = scan_alphabet(bases)
+    if not pure or has_n:
+        return None
+    quals = np.ascontiguousarray(quals, np.int8)
+    b2, _ = pack_batch2(bases, quals, _CODES_ONLY, n_plane=False)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        b2, quals, np.ascontiguousarray(lengths, np.int32)))
+
+
+def _device_parts(batch, device):
+    """The device engine's partials of one parsed batch: K5b for FASTQ
+    reads of pure ACGT (:func:`b2_inputs`), else
+    ``ops/stats.accumulate_dispatch`` (K5 for FASTQ)."""
+    xs = (b2_inputs(batch.bases, batch.quals, batch.lengths, device)
+          if batch.is_fastq else None)
+    if xs is not None:
+        return stats_ops.derive_from_hist(stats_hist_b2(*xs))
+    bases, quals, lengths, counts = _shared.device_batch(batch, device)
+    return stats_ops.accumulate_dispatch(bases, quals, lengths, counts,
+                                         is_fastq=batch.is_fastq)
+
+
 def tool_main(ctx: CliContext, argv) -> int:
     st = {"new_format": False}
 
@@ -135,11 +172,7 @@ def tool_main(ctx: CliContext, argv) -> int:
                     is_fastq=batch.is_fastq,
                 )
             else:
-                bases, quals, lengths, counts = _shared.device_batch(
-                    batch, device)
-                parts = stats_ops.accumulate_dispatch(
-                    bases, quals, lengths, counts, is_fastq=batch.is_fastq
-                )
+                parts = _device_parts(batch, device)
         acc.merge_partial(*parts)
 
     # every process accumulated its own input shard; the histograms merge

@@ -42,6 +42,7 @@ def test_port_imports_without_jax():
         "for t in m.TOOLS.values():\n"
         "    importlib.import_module(t)\n"
         "import fastx_toolkit_tpu_torch.ops.collapse\n"
+        "import fastx_toolkit_tpu_torch.bench\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n")
     assert r.returncode == 0, r.stderr.decode()
@@ -71,14 +72,21 @@ def test_port_cli_runs_with_jax_unimportable():
 
 
 def test_port_runs_with_the_jax_package_and_bench_blocked():
-    """The CLIs (the stats CLI on both engines) and chip_smoke's helpers,
-    with jax, the JAX package and bench made unimportable: nothing of them
-    is loaded."""
+    """The CLIs (the stats CLI on both engines), the port's bench and
+    chip_smoke's helpers, with jax, the JAX package and bench made
+    unimportable: nothing of them is loaded."""
     r = _run_py(
-        "import io, sys\n"
+        "import io, os, sys\n"
         "for m in ('jax', 'fastx_toolkit_tpu', 'bench'):\n"
         "    sys.modules[m] = None\n"
         "import chip_smoke\n"
+        "from fastx_toolkit_tpu_torch import bench as port_bench\n"
+        "port_bench.N_READS, port_bench.CHUNK = 600, 256\n"
+        "os.environ['FASTX_BENCH_ITERS'] = '1'\n"
+        "from contextlib import redirect_stdout\n"
+        "for argv in (['--config', '1'], ['--device', '--config', '3']):\n"
+        "    with redirect_stdout(io.StringIO()):\n"
+        "        assert port_bench.main(argv) == 0, argv\n"
         "from fastx_toolkit_tpu_torch import synth\n"
         "from fastx_toolkit_tpu_torch.cli.common import CliContext\n"
         "from fastx_toolkit_tpu_torch.cli.tools import fastx_clipper, "
@@ -197,6 +205,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert len(paths) > 20
     pkg = os.path.join(ROOT, "fastx_toolkit_tpu_torch")
     assert {os.path.join(pkg, "probe.py"),
+            os.path.join(pkg, "bench.py"),
             os.path.join(pkg, "kernels", "probe.py"),
             os.path.join(pkg, "kernels", "probe_cuda.py")} <= set(paths)
     found = {p: _forbidden_imports(p) for p in paths}

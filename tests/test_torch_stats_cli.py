@@ -105,3 +105,27 @@ def test_numeric_qualities_and_file_output_match_reference(engine, tmp_path,
 def test_usage_error_matches_reference(engine, tmp_path, monkeypatch):
     ref = _compare(["-x"], b"", tmp_path, monkeypatch, engine)
     assert ref["rc"] == 1
+
+
+@pytest.mark.parametrize("lane,kernel", [("acgt", "stats_hist_b2"),
+                                         ("with_n", "stats_hist")])
+def test_device_engine_sends_pure_acgt_blocks_to_k5b(lane, kernel, tmp_path,
+                                                     monkeypatch):
+    """The device engine's route: a block of pure-ACGT reads goes 2-bit
+    packed to K5b, a block with an N to K5, each with the reference's
+    bytes."""
+    from fastx_toolkit_tpu_torch.cli.tools import fastx_quality_stats
+    from fastx_toolkit_tpu_torch.kernels import stats_cuda
+
+    calls = []
+    for mod, name in ((fastx_quality_stats, "stats_hist_b2"),
+                      (stats_cuda, "stats_hist")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real: (
+            calls.append(_n) or _f(*a)))
+    data = (synth.synth_lane_bytes(500, 60, seed=4) if lane == "acgt"
+            else synth.synth_small_rna_lane_bytes(500, 50, seed=4))
+    ref = _compare(["-Q", "33"], data, tmp_path, monkeypatch, "device",
+                   block_bytes=30000)
+    assert ref["rc"] == 0
+    assert len(calls) >= 2 and set(calls) == {kernel}
